@@ -6,23 +6,40 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the four hand-written kernels from the sources in
-             cvsteer_tpu_torch/kernels/csrc (nvcc, sm_90a).
-3. kernels — run each kernel's wrapper and its plain PyTorch version on the
-             same inputs at the main path's shapes (a rendered 480x640
-             frame, its 5-level pyramid, 256 keypoints per level); check
-             the error against the stated tolerance; time both with CUDA
-             events (median of 25 runs after warm-up).
-4. VO      — render a textured multi-plane scene with known poses
-             (numpy only, fx = fy = 500, cx = 320, cy = 240) and run the
-             port's default-configuration VO on it through init_vo ->
-             process_image -> finalize on the card, the loop of
+2. build   — compile the hand-written kernels from the sources in
+             cvsteer_tpu_torch/kernels/csrc (one nvcc per source, all
+             started together, sm_90a) and load them.
+3. inputs  — render the scenes (numpy only): a 480x640 frame and 64 frames
+             at 512x512 (written as 8-bit PNGs for the CLI); read the
+             committed 185x256 fish image.
+4. kernels — run each kernel's wrapper and its plain PyTorch version on the
+             same inputs at its path's shapes; check the error against the
+             stated tolerance; time kernel, plain version and, where one
+             PyTorch call computes the same function, that call (CUDA-event
+             medians of 25 runs after warm-up); compute each kernel's bound
+             from the shapes.
+5. VO      — the port's default-configuration VO on a rendered scene with
+             known poses (fx = fy = 500, cx = 320, cy = 240) through init_vo
+             -> process_image -> finalize, the loop of
              cvsteer_tpu_torch.cli_vo.main; check initialization, one pose
              per frame, the ATE against a bound derived from the scene's
-             geometry, and that every kernel launched during the run.
+             geometry, and that kernels A-D launched.
+6. CLI     — cvsteer_tpu_torch.cli.main on a list of the 64 frames and one
+             unreadable entry, with --filters g2 and then g4 (default
+             --batch 16): 192 PNGs per run, each within 1 gray level of the
+             plain path's 8-bit maps on the card with >= 99.9 % of pixels
+             equal, and the maps kernel launched; then the fish image
+             against the decoded goldens (mean L1 <= 2.5, the reference's
+             no-recode bar). Prints images/s.
+7. pyramid — steerable_pyramid_maps (5 levels, G2 and G4) on the 480x640
+             frame against the same maps from the plain versions of the
+             kernels, and d sum(basis^2) / d image through g2_basis and
+             g4_basis against autograd through the plain bank; kernels A, B
+             and F launched.
 
-The line before the last is the per-kernel JSON record; the last line is
-{"ok": true, "device": {...}}.
+Each path phase (5-7) sets the launch counts to 0 just before it and reads
+them just after. The line before the last is the per-kernel JSON record;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -30,14 +47,42 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOL_REL = 1e-5  # fp32 kernels vs their plain versions, relative to scale
 TOL_PYR = 255 * 3e-5 + 1e-3  # cv2.pyrDown parity bar of the reference tests
 TOL_ORIENT = 1e-4  # ct/st/dy/dx (unit scale)
 MIN_KEEP_AGREE = 0.999  # p3 keep-mask agreement
+TOL_GRAD = 1e-3  # gradient vs autograd through the plain bank (the reference's bar)
+MIN_U8_EQUAL = 0.999  # CLI maps equal to the plain path's 8-bit maps
+GOLDEN_L1 = 2.5  # mean L1 vs the decoded goldens (tests/test_golden.py, no recode)
+
+# NVIDIA H100 SXM data-sheet peaks at the 700 W limit: HBM3 bandwidth and
+# the fp32 rate outside the tensor cores. A kernel's bound is the larger of
+# its bytes (each input read once, each output written once) over the first
+# and its flops over the second.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+CLI_FRAMES, CLI_HW, CLI_BATCH = 64, (512, 512), 16
+MAPS = ("edges", "lines_dark", "lines_bright")
+PATH_KERNELS = {  # phase -> the kernels its path must launch
+    "vo": ("filter_bank", "pyr_down", "g2_features_full", "desc_sample"),
+    "cli_g2": ("g2_maps",),
+    "cli_g4": ("g4_maps",),
+    "pyramid": ("filter_bank", "pyr_down", "filter_bank_adj"),
+}
+LAUNCHES_FROM = {  # kernel -> the phase whose launch count the JSON line reports
+    "filter_bank": "vo", "pyr_down": "vo", "g2_features_full": "vo", "desc_sample": "vo",
+    "g2_maps": "cli_g2", "g4_maps": "cli_g4", "filter_bank_adj": "pyramid",
+}
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_DIR = os.path.join(REPO, "cvsteer_tpu_torch", "io", "golden")
 
 
 def _fail(msg: str) -> int:
@@ -65,16 +110,114 @@ def cuda_ms(fn, reps: int = 25) -> float:
     return times[len(times) // 2]
 
 
-def check_kernels(frame):
-    """Phase 3: each kernel against its plain version at main-path shapes.
+class Bound:
+    """The least time the card could take for a set of calls:
+    max(bytes / HBM bandwidth, flops / fp32 peak) over their sums."""
+
+    def __init__(self):
+        self.nbytes = 0.0
+        self.flops = 0.0
+
+    def add(self, nbytes: float, flops: float) -> None:
+        self.nbytes += nbytes
+        self.flops += flops
+
+    def fields(self) -> dict:
+        b_ms = self.nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = self.flops / FP32_FLOPS_PER_S * 1e3
+        return dict(bound_ms=max(b_ms, f_ms), bound_by="bytes" if b_ms >= f_ms else "operations",
+                    bound_bytes=self.nbytes, bound_flops=self.flops)
+
+
+def pass_flops(taps) -> int:
+    """Least flops per output of one 1-D correlation pass: one multiply per
+    non-zero tap, but one per mirrored pair of equal magnitude (a x + b y =
+    a (x +- y) where |a| = |b|), and one add per non-zero tap but the
+    first."""
+    import numpy as np
+
+    t = np.asarray(taps, np.float64)
+    r = len(t) // 2
+    mults = int(t[r] != 0)
+    for k in range(1, r + 1):
+        a, b = t[r - k], t[r + k]
+        if a != 0 and b != 0 and np.isclose(abs(a), abs(b), rtol=1e-6, atol=0.0):
+            mults += 1
+        else:
+            mults += int(a != 0) + int(b != 0)
+    return mults + int((t != 0).sum()) - 1
+
+
+def distinct_rows(taps) -> list:
+    """Indices of the tap vectors that are not proportional to an earlier
+    one (the reference's _dedup_xtaps test)."""
+    import numpy as np
+
+    unit = [v / v[np.argmax(np.abs(v))] for v in np.asarray(taps, np.float64)]
+    keep = []
+    for k, u in enumerate(unit):
+        if not any(np.allclose(u, unit[j], rtol=1e-6, atol=1e-9) for j in keep):
+            keep.append(k)
+    return keep
+
+
+def bank_flops(px: int, xtaps, ytaps) -> int:
+    """Least flops of a separable bank over px outputs: one row pass per
+    distinct (up to scale) x-tap vector, its scale absorbed by the column
+    taps, then one column pass per filter, each at pass_flops."""
+    rows = sum(pass_flops(xtaps[k]) for k in distinct_rows(xtaps))
+    return px * (rows + sum(pass_flops(y) for y in ytaps))
+
+
+def maps_tail_flops(order: int) -> int:
+    """Flops per pixel of the maps tails, counted from the expressions of
+    ops/cuda_frontend.py (selects not counted): G2 73 (sum and difference
+    2, c2 17, c3 13, (u, v) 7, steering 29, maps 5); G4 57 outside the
+    quadratic form ((u, v) 7, half-angle powers 7, steering 38, maps 5),
+    plus a product, a multiply and an add per term of its list."""
+    if order == 2:
+        return 73
+    from cvsteer_tpu_torch.ops.cuda_frontend import g4_live_terms
+
+    return 57 + 3 * len(g4_live_terms())
+
+
+def render_inputs(seed: int, workdir: str):
+    """(480x640 frame, 64 8-bit 512x512 frames, their PNG paths, fish)."""
+    import numpy as np
+
+    from cvsteer_tpu_torch.io.imageio import imread_gray_f32, imwrite_u8
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+
+    frame = PlanesSequence(n_frames=1, seed=seed).render(0)
+    h, w = CLI_HW
+    seq = PlanesSequence(n_frames=CLI_FRAMES, image_hw=CLI_HW, cx=w / 2, cy=h / 2, seed=seed)
+    with ThreadPoolExecutor(8) as pool:
+        frames = list(pool.map(seq.render, range(CLI_FRAMES)))
+    frames_u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames]
+    paths = [os.path.join(workdir, f"frame{i:03d}.png") for i in range(CLI_FRAMES)]
+    for p, f in zip(paths, frames_u8):
+        imwrite_u8(p, f)
+    fish = imread_gray_f32(os.path.join(GOLDEN_DIR, "fish.png"))
+    if fish is None or fish.shape != (185, 256):
+        raise RuntimeError("the committed fish image cvsteer_tpu_torch/io/golden/fish.png is unreadable")
+    return frame, np.stack(frames_u8).astype(np.float32), paths, fish
+
+
+def check_kernels(frame, frames512, fish):
+    """Phase 4: each kernel against its plain version at its path's shapes.
     Returns (records, ok)."""
+    import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from cvsteer_tpu_torch.features.descriptors import _rotated_grid_coords
     from cvsteer_tpu_torch.features.keypoints import detect_keypoints_packed
     from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.filters.g4 import g4_bank
     from cvsteer_tpu_torch.ops import cuda_desc as cd
     from cvsteer_tpu_torch.ops import cuda_frontend as cf
+    from cvsteer_tpu_torch.utils.precision import precise
 
     bank = g2_bank()
     xt, yt = bank.xtaps, bank.ytaps
@@ -85,49 +228,79 @@ def check_kernels(frame):
     shapes = [tuple(l.shape[-2:]) for l in levels]
     records, ok = [], True
 
-    def record(name, src, replaces, err, tol, ms, plain_ms, **extra):
+    def record(name, src, replaces, err, good, ms, plain_ms, library_ms, bound, **extra):
         nonlocal ok
-        good = err <= tol and all(v for k, v in extra.items() if k.endswith("_ok"))
-        ok &= good
-        print(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per frame "
-              f"{'' if good else 'FAILED'} {extra if extra else ''}")
+        ok &= bool(good)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        b = bound.fields()
+        print(f"kernel {name}: max_abs_err {err:.3e} {'ok' if good else 'FAILED'}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) {extra if extra else ''}")
         records.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-            **{k: v for k, v in extra.items() if not k.endswith("_ok")},
+            name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b, **extra,
         ))
 
-    # A: the G2/H2 bank (K=7, T=9) on every level
-    err, scale = 0.0, 0.0
+    def conv_bank(taps_x, taps_y, stride=1):
+        """nn.Conv2d(padding_mode="reflect") with the outer-product weights:
+        the one-call library yardstick for kernels A and B (TF32 off)."""
+        K, T = taps_x.shape
+        conv = torch.nn.Conv2d(1, K, T, stride=stride, padding=(T - 1) // 2,
+                               padding_mode="reflect", bias=False).cuda()
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(np.einsum("ku,kv->kuv", taps_y, taps_x)[:, None]))
+
+        def call(x):
+            with torch.no_grad(), precise():
+                return conv(x[:, None])
+        return call
+
+    # A: the G2/H2 bank (K=7, T=9) on every level of the VO pyramid
+    err, scale, lib_err, bound = 0.0, 0.0, 0.0, Bound()
+    conv = conv_bank(xt, yt)
     for lv in levels:
         k = cf.filter_bank(lv, xt, yt)
         p = cf.filter_bank_plain(lv, xt, yt)
         err = max(err, (k - p).abs().max().item())
         scale = max(scale, p.abs().max().item())
+        lib_err = max(lib_err, (conv(lv) - p).abs().max().item())
+        px = lv.numel()
+        bound.add(px * 4 * (1 + 7), bank_flops(px, xt, yt))
     record(
         "filter_bank", "cvsteer_tpu_torch/kernels/csrc/filter_bank.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:142 filter_bank_pallas (+ :1311 bank_tiled_pallas)",
-        err, TOL_REL * scale,
+        err, err <= TOL_REL * scale,
         sum(cuda_ms(lambda lv=lv: cf.filter_bank(lv, xt, yt)) for lv in levels),
         sum(cuda_ms(lambda lv=lv: cf.filter_bank_plain(lv, xt, yt)) for lv in levels),
-        shapes=shapes,
+        sum(cuda_ms(lambda lv=lv: conv(lv)) for lv in levels), bound,
+        shapes=shapes, library_abs_err=lib_err,
     )
 
     # B: pyramid down, the 4 steps of the 5-level pyramid
-    err = max(
-        (cf.pyr_down(lv) - cf.pyr_down_plain(lv)).abs().max().item() for lv in levels[:-1]
-    )
+    b5 = cf._BINOMIAL5.reshape(1, -1)
+    conv = conv_bank(b5, b5, stride=2)
+    err, lib_err, bound = 0.0, 0.0, Bound()
+    for lv in levels[:-1]:
+        p = cf.pyr_down_plain(lv)
+        err = max(err, (cf.pyr_down(lv) - p).abs().max().item())
+        lib_err = max(lib_err, (conv(lv)[:, 0] - p).abs().max().item())
+        h, w = lv.shape[-2:]
+        ho, wo = -(-h // 2), -(-w // 2)
+        bound.add(4 * (h * w + ho * wo), 9 * wo * (h + ho))
     record(
         "pyr_down", "cvsteer_tpu_torch/kernels/csrc/pyr_down.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:1461 pyr_down_pallas",
-        err, TOL_PYR,
+        err, err <= TOL_PYR,
         sum(cuda_ms(lambda lv=lv: cf.pyr_down(lv)) for lv in levels[:-1]),
         sum(cuda_ms(lambda lv=lv: cf.pyr_down_plain(lv)) for lv in levels[:-1]),
+        sum(cuda_ms(lambda lv=lv: conv(lv)) for lv in levels[:-1]), bound,
+        library_abs_err=lib_err,
     )
 
-    # C: the per-level detector maps on all 5 levels
-    err, basis_rel, agree, off_ok = 0.0, 0.0, 1.0, True
+    # C: the per-level detector maps on all 5 levels (basis included). Its
+    # flops: the bank, then ~70 for (score, ct, st), ~60 for the NMS window,
+    # the packed 3x3 pool and the subpixel offsets.
+    err, basis_rel, agree, off_ok, bound = 0.0, 0.0, 1.0, True, Bound()
     per_level_out = []
     for lv in levels:
         ko = cf.g2_features_full(lv, xt, yt, threshold=1.0, nms_radius=2)
@@ -145,19 +318,22 @@ def check_kernels(frame):
         off_ok &= bool(
             ((ko[0].view(torch.int32) & 15)[both] == (po[0].view(torch.int32) & 15)[both]).all()
         )
+        px = lv.numel()
+        bound.add(px * 4 * (1 + 7 + 5), bank_flops(px, xt, yt) + 130 * px)
     record(
         "g2_features_full", "cvsteer_tpu_torch/kernels/csrc/g2_features.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:1122 g2_features_full_pallas",
-        err, TOL_ORIENT,
+        err, err <= TOL_ORIENT and basis_rel <= TOL_REL and agree >= MIN_KEEP_AGREE and off_ok,
         sum(cuda_ms(lambda lv=lv: cf.g2_features_full(lv, xt, yt, threshold=1.0)) for lv in levels),
         sum(cuda_ms(lambda lv=lv: cf.g2_features_full_plain(lv, xt, yt, threshold=1.0))
             for lv in levels),
-        basis_rel_err=basis_rel, basis_ok=basis_rel <= TOL_REL,
-        p3_keep_agreement=agree, keep_ok=agree >= MIN_KEEP_AGREE, offsets_ok=off_ok,
+        None, bound,
+        basis_rel_err=basis_rel, p3_keep_agreement=agree, offsets_ok=off_ok,
     )
 
-    # D: descriptor sampling at each level's 256 detected keypoints
-    err, scale, calls = 0.0, 0.0, []
+    # D: descriptor sampling at each level's 256 detected keypoints; the
+    # library call is F.grid_sample on the same (clipped) coordinates
+    err, scale, lib_err, calls, grids, bound = 0.0, 0.0, 0.0, [], [], Bound()
     for p3, dy, dx, ct, st, basis in per_level_out:
         kp = detect_keypoints_packed(p3, dy, dx, ct, st, max_keypoints=256)
         ys, xs, _, _ = _rotated_grid_coords(kp, 4, 3.0)
@@ -166,14 +342,88 @@ def check_kernels(frame):
         p = cd.sample_patches_plain(basis, ys, xs)
         err = max(err, (k - p).abs().max().item())
         scale = max(scale, p.abs().max().item())
+        h, w = basis.shape[-2:]
+        grid = torch.stack([2 * xs.clamp(0, w - 1) / max(w - 1, 1) - 1,
+                            2 * ys.clamp(0, h - 1) / max(h - 1, 1) - 1], -1)
+        lib = F.grid_sample(basis, grid, mode="bilinear", padding_mode="border", align_corners=True)
+        lib_err = max(lib_err, (lib.permute(0, 2, 3, 1) - p).abs().max().item())
         calls.append((basis, ys, xs))
+        grids.append((basis, grid))
+        n_s, c = ys.numel(), basis.shape[1]
+        # coordinates in, 4 corner texels of C channels in, C samples out;
+        # ~10 flops of coordinates per sample and 8 of lerps per channel
+        bound.add(n_s * (8 + 16 * c + 4 * c), n_s * (10 + 8 * c))
     record(
         "desc_sample", "cvsteer_tpu_torch/kernels/csrc/desc_sample.cu",
         "cvsteer_tpu/ops/pallas_desc.py:211 bilinear_sample_patch_dma (kernel :148 sample_patches_pallas)",
-        err, TOL_REL * scale,
+        err, err <= TOL_REL * scale,
         sum(cuda_ms(lambda c=c: cd.sample_patches(*c)) for c in calls),
         sum(cuda_ms(lambda c=c: cd.sample_patches_plain(*c)) for c in calls),
-        keypoints=[256] * len(calls),
+        sum(cuda_ms(lambda g=g: F.grid_sample(g[0], g[1], mode="bilinear", padding_mode="border",
+                                              align_corners=True)) for g in grids),
+        bound, keypoints=[256] * len(calls), library_abs_err=lib_err,
+    )
+
+    # E / E4: the fused maps at the CLI's batch (16x512x512, bf16 maps, the
+    # timed shape), the VO frame size and the unaligned fish
+    inputs = [torch.from_numpy(frames512[:CLI_BATCH]).cuda(), img,
+              torch.from_numpy(fish).cuda()[None].contiguous()]
+    g4 = g4_bank()
+    for order, name, fn, plain, bk, repl in (
+        (2, "g2_maps", cf.g2_maps, cf.g2_maps_plain, bank,
+         "cvsteer_tpu/ops/pallas_frontend.py:946 g2_maps_tiled_pallas mode \"maps\" (call :1034; g2_maps_pallas :806)"),
+        (4, "g4_maps", cf.g4_maps, cf.g4_maps_plain, g4,
+         "cvsteer_tpu/ops/pallas_frontend.py:946 g2_maps_tiled_pallas mode \"g4maps\" (call :1034; g4_maps_pallas :868)"),
+    ):
+        err, rel, bits = 0.0, 0.0, True
+        for x in inputs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for km, pm in zip(fn(x, bk.xtaps, bk.ytaps, out_dtype=dtype),
+                                  plain(x, bk.xtaps, bk.ytaps, out_dtype=dtype)):
+                    e = (km.float() - pm.float()).abs().max().item()
+                    err = max(err, e)
+                    rel = max(rel, e / max(pm.float().abs().max().item(), 1e-30))
+                    bits &= bool(torch.equal(km, pm))
+        batch = inputs[0]
+        px = batch.numel()
+        bound = Bound()
+        bound.add(px * (4 + 3 * 2), bank_flops(px, bk.xtaps, bk.ytaps) + px * maps_tail_flops(order))
+        record(
+            name, "cvsteer_tpu_torch/kernels/csrc/g2_maps.cu", repl, err, rel <= TOL_REL,
+            cuda_ms(lambda: fn(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)),
+            cuda_ms(lambda: plain(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)),
+            None, bound, max_rel_err=rel, bit_equal=bits, timed_shape=list(batch.shape),
+            ms_fp32_maps=cuda_ms(lambda: fn(batch, bk.xtaps, bk.ytaps)),
+            shapes=[list(x.shape) for x in inputs],
+        )
+
+    # F: the bank's adjoint with both banks at every shape; timed at the
+    # gradient phase's 1x480x640 (one G2 and one G4 call)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err, rel, ag_rel, bound, timed, timed_plain = 0.0, 0.0, 0.0, Bound(), 0.0, 0.0
+    for bk in (bank, g4):
+        K, T = bk.xtaps.shape
+        for x in inputs:
+            g = torch.randn(tuple(x.shape[:-2]) + (K,) + tuple(x.shape[-2:]), device="cuda",
+                            generator=gen)
+            k = cf.filter_bank_adjoint(g, bk.xtaps, bk.ytaps)
+            p = cf.filter_bank_adjoint_plain(g, bk.xtaps, bk.ytaps)
+            s = p.abs().max().item()
+            err = max(err, (k - p).abs().max().item())
+            rel = max(rel, (k - p).abs().max().item() / s)
+            xr = x.clone().requires_grad_()
+            (ref,) = torch.autograd.grad(cf.filter_bank_plain(xr, bk.xtaps, bk.ytaps), xr, g)
+            ag_rel = max(ag_rel, (k - ref).abs().max().item() / s)
+            if x is img:
+                timed += cuda_ms(lambda g=g, bk=bk: cf.filter_bank_adjoint(g, bk.xtaps, bk.ytaps))
+                timed_plain += cuda_ms(lambda g=g, bk=bk: cf.filter_bank_adjoint_plain(g, bk.xtaps, bk.ytaps))
+                h, w = x.shape[-2:]
+                bound.add(h * w * 4 * (K + 1), bank_flops((h + T - 1) * (w + T - 1), bk.xtaps, bk.ytaps))
+    record(
+        "filter_bank_adj", "cvsteer_tpu_torch/kernels/csrc/filter_bank_adj.cu",
+        "cvsteer_tpu/ops/pallas_frontend.py:1224-1252 filter_bank_pallas_diff (custom VJP backward)",
+        err, rel <= TOL_REL and ag_rel <= TOL_GRAD, timed, timed_plain, None, bound,
+        max_rel_err=rel, autograd_rel_err=ag_rel, timed_shape=list(img.shape),
     )
     return records, ok
 
@@ -211,7 +461,7 @@ def ate_bound(seq, state, cfg) -> dict:
 
 
 def run_vo(n_frames: int, seed: int):
-    """Phase 4: the port's default VO on the rendered scene, on the card."""
+    """Phase 5: the port's default VO on the rendered scene, on the card."""
     import numpy as np
     import torch
 
@@ -252,6 +502,143 @@ def run_vo(n_frames: int, seed: int):
     )
 
 
+def run_cli(frames512, paths, workdir: str):
+    """Phase 6: cvsteer_tpu_torch.cli.main with --filters g2 and g4 on the
+    64 frames (and one unreadable entry), then on the fish image. Returns
+    (per-run results, checks)."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import cli, kernels
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.filters.g4 import g4_bank
+    from cvsteer_tpu_torch.io.imageio import imread_gray_f32
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+    from cvsteer_tpu_torch.utils.imageproc import normalize_minmax_u8
+
+    lst = os.path.join(workdir, "inputs.txt")
+    entries = list(paths)
+    entries.insert(len(entries) // 2, os.path.join(workdir, "missing.png"))
+    with open(lst, "w") as f:
+        f.write("\n".join(entries) + "\n")
+
+    runs, checks = {}, {}
+    for filters, plain, bk in (("g2", cf.g2_maps_plain, g2_bank()), ("g4", cf.g4_maps_plain, g4_bank())):
+        out = os.path.join(workdir, f"out_{filters}")
+        phase = f"cli_{filters}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--input", lst, "--output", out, "--filters", filters])
+        dt = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        pngs = [f for f in os.listdir(out) if f.endswith(".png")]
+        max_diff, n_equal, n_total, unreadable = 0.0, 0, 0, 0
+        for b0 in range(0, CLI_FRAMES, CLI_BATCH):
+            batch = torch.from_numpy(frames512[b0:b0 + CLI_BATCH]).cuda()
+            want = [normalize_minmax_u8(m, axes=(-2, -1)).cpu().numpy()
+                    for m in plain(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)]
+            for j in range(batch.shape[0]):
+                base = os.path.splitext(os.path.basename(paths[b0 + j]))[0]
+                for name, w in zip(MAPS, want):
+                    got = imread_gray_f32(os.path.join(out, f"{base}_{name}.png"))
+                    if got is None or got.shape != w[j].shape:
+                        unreadable += 1
+                        continue
+                    d = np.abs(got - w[j])
+                    max_diff = max(max_diff, float(d.max()))
+                    n_equal += int((d == 0).sum())
+                    n_total += d.size
+        equal = n_equal / max(n_total, 1)
+        runs[phase] = dict(rc=rc, seconds=dt, images_per_s=CLI_FRAMES / dt, pngs=len(pngs),
+                           max_u8_diff=max_diff, equal_fraction=equal, launches=launches)
+        print(f"CLI --filters {filters}: {CLI_FRAMES} images {CLI_HW[0]}x{CLI_HW[1]} in {dt:.3f} s "
+              f"({CLI_FRAMES / dt:.2f} images/s, decode + device + PNG writes); {len(pngs)} PNGs; "
+              f"vs plain path: max diff {max_diff:.0f} gray levels, {100 * equal:.4f} % equal")
+        checks[f"{filters}: rc 0"] = rc == 0
+        checks[f"{filters}: {3 * CLI_FRAMES} PNGs"] = len(pngs) == 3 * CLI_FRAMES and unreadable == 0
+        checks[f"{filters}: within 1 gray level of plain"] = max_diff <= 1.0
+        checks[f"{filters}: >= 99.9 % equal to plain"] = equal >= MIN_U8_EQUAL
+        checks[f"{filters}: maps kernel launched"] = all(launches[k] > 0 for k in PATH_KERNELS[phase])
+
+    out = os.path.join(workdir, "out_fish")
+    rc = cli.main(["--input", os.path.join(GOLDEN_DIR, "fish.png"), "--output", out])
+    l1 = {}
+    for name in MAPS:
+        got = imread_gray_f32(os.path.join(out, f"fish_{name}.png"))
+        gold = imread_gray_f32(os.path.join(GOLDEN_DIR, f"golden_{name}.png"))
+        l1[name] = float(np.abs(got.astype(np.float64) - gold).mean()) if got is not None else math.inf
+    runs["fish"] = dict(rc=rc, golden_l1=l1)
+    print(f"CLI fish 185x256 vs decoded goldens, mean L1 (bar {GOLDEN_L1}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in l1.items()))
+    checks["fish: rc 0 and golden L1"] = rc == 0 and all(v <= GOLDEN_L1 for v in l1.values())
+    return runs, checks
+
+
+def run_pyramid(frame):
+    """Phase 7: steerable_pyramid_maps and the differentiable bases on the
+    card, against the plain kernels' versions."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.features.pyramid_maps import steerable_pyramid_maps
+    from cvsteer_tpu_torch.filters import g2 as fg2
+    from cvsteer_tpu_torch.filters import g4 as fg4
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    img = torch.from_numpy(frame).cuda()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    levels = steerable_pyramid_maps(img, levels=5, with_g4=True)
+    grads = []
+    for basis_fn in (fg2.g2_basis, fg4.g4_basis):
+        x = img.clone().requires_grad_()
+        grads.append(torch.autograd.grad((basis_fn(x) ** 2).sum(), x)[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    # the same maps from the plain versions of kernels B and A
+    g2b, g4b = fg2.g2_bank(), fg4.g4_bank()
+    plain = [img]
+    for _ in range(4):
+        plain.append(cf.pyr_down_plain(plain[-1]))
+    finite, err, odd_bad = True, 0.0, 0.0
+    odd = ("h2", "h4", "phase", "theta")  # their sign follows theta's at singular pixels
+    for lv, got in zip(plain, levels):
+        want = (fg2.g2_maps_from_basis(cf.filter_bank_plain(lv, g2b.xtaps, g2b.ytaps)),
+                fg4.g4_maps_from_basis(cf.filter_bank_plain(lv, g4b.xtaps, g4b.ytaps)))
+        for g, w in zip((got.g2, got.g4), want):
+            for field in w._fields:
+                a, b = getattr(g, field), getattr(w, field)
+                finite &= bool(torch.isfinite(a).all())
+                d = (a - b).abs()
+                if field == "phase":
+                    d = torch.remainder(a - b + math.pi, 2 * math.pi).sub(math.pi).abs()
+                tol = TOL_REL * max(b.abs().max().item(), 1.0)
+                if field in odd:
+                    odd_bad = max(odd_bad, (d > tol).float().mean().item())
+                else:
+                    err = max(err, d.max().item() / max(b.abs().max().item(), 1e-30))
+    grad_err = 0.0
+    for bk, g in zip((g2b, g4b), grads):
+        finite &= bool(torch.isfinite(g).all())
+        x = img.clone().requires_grad_()
+        (ref,) = torch.autograd.grad((cf.filter_bank_plain(x, bk.xtaps, bk.ytaps) ** 2).sum(), x)
+        grad_err = max(grad_err, (g - ref).abs().max().item() / ref.abs().max().item())
+    shapes = [tuple(l.g2.edges.shape) for l in levels]
+    print(f"pyramid: 5 levels {shapes}, G2 + G4 maps and two basis gradients in {dt:.3f} s; "
+          f"vs plain: max rel err {err:.3e}, odd-field mismatch {odd_bad:.2e}; "
+          f"gradient rel err vs autograd {grad_err:.3e}; launches {launches}")
+    checks = {
+        "pyramid: finite": finite,
+        "pyramid: maps match plain": err <= TOL_REL and odd_bad <= 1e-3,
+        "pyramid: gradients match autograd": grad_err <= TOL_GRAD,
+        "pyramid: kernels A, B, F launched": all(launches[k] > 0 for k in PATH_KERNELS["pyramid"]),
+    }
+    return launches, checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -277,7 +664,8 @@ def main(argv=None) -> int:
     )
     if smi.returncode != 0:
         return _fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -287,44 +675,60 @@ def main(argv=None) -> int:
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib}")
 
-    # 3. kernel checks (their launches are not the main path's)
-    from cvsteer_tpu_torch.io.render import PlanesSequence
+    with tempfile.TemporaryDirectory(prefix="cvsteer_smoke_") as workdir:
+        # 3. inputs
+        t0 = time.perf_counter()
+        frame, frames512, paths, fish = render_inputs(args.seed, workdir)
+        print(f"inputs: {time.perf_counter() - t0:.1f} s")
 
-    frame = PlanesSequence(n_frames=1, seed=args.seed).render(0)
-    records, ok = check_kernels(frame)
-    if not ok:
-        return _fail("a kernel disagrees with its plain version")
+        # 4. kernel checks (their launches are not the paths')
+        records, ok = check_kernels(frame, frames512, fish)
+        if not ok:
+            return _fail("a kernel disagrees with its plain version")
 
-    # 4. main path
-    res = run_vo(args.frames, args.seed)
-    st, gate = res["state"], res["gate"]
-    n = args.frames
-    print(
-        f"VO: {n} frames 480x640 in {res['vo_s']:.2f} s of VO time "
-        f"({n / res['vo_s']:.2f} frames/s; {res['wall_s']:.2f} s wall incl. rendering); "
-        f"keyframes {len(st.keyframes)}, landmarks {st.num_landmarks}"
-    )
-    print("phase ms (mean per call): " + json.dumps(
-        {k: round(v, 3) for k, v in res["means_ms"].items()}
-    ))
-    print(f"ATE {res['ate']:.4f} m, bound {gate['bound']:.4f} m "
-          f"(Z {gate['Z']:.2f} m, B_kf {gate['B_kf']:.3f} m, N_lm {gate['N_lm']:.0f}, "
-          f"hops {gate['hops']:.1f}, init frame {gate['init_frame']})")
-    print(f"launches in the VO run: {res['launches']}")
-    checks = {
-        "initialized": st.initialized,
-        "one pose per frame": res["frames"] == list(range(n)),
-        "finite poses": res["finite"],
-        "ATE within bound": res["ate"] < gate["bound"],
-        "every kernel launched": all(res["launches"][k] > 0 for k in kernels.KERNELS),
-    }
+        # 5. VO
+        res = run_vo(args.frames, args.seed)
+        st, gate = res["state"], res["gate"]
+        n = args.frames
+        print(
+            f"VO: {n} frames 480x640 in {res['vo_s']:.2f} s of VO time "
+            f"({n / res['vo_s']:.2f} frames/s; {res['wall_s']:.2f} s wall incl. rendering); "
+            f"keyframes {len(st.keyframes)}, landmarks {st.num_landmarks}"
+        )
+        print("phase ms (mean per call): " + json.dumps(
+            {k: round(v, 3) for k, v in res["means_ms"].items()}
+        ))
+        print(f"ATE {res['ate']:.4f} m, bound {gate['bound']:.4f} m "
+              f"(Z {gate['Z']:.2f} m, B_kf {gate['B_kf']:.3f} m, N_lm {gate['N_lm']:.0f}, "
+              f"hops {gate['hops']:.1f}, init frame {gate['init_frame']})")
+        print(f"launches in the VO run: {res['launches']}")
+        checks = {
+            "VO: initialized": st.initialized,
+            "VO: one pose per frame": res["frames"] == list(range(n)),
+            "VO: finite poses": res["finite"],
+            "VO: ATE within bound": res["ate"] < gate["bound"],
+            "VO: kernels A-D launched": all(res["launches"][k] > 0 for k in PATH_KERNELS["vo"]),
+        }
+        launches = {"vo": res["launches"]}
+
+        # 6. CLI
+        runs, cli_checks = run_cli(frames512, paths, workdir)
+        checks.update(cli_checks)
+        launches.update({k: v["launches"] for k, v in runs.items() if "launches" in v})
+        print(f"CLI images/s on {card}: g2 {runs['cli_g2']['images_per_s']:.2f}, "
+              f"g4 {runs['cli_g4']['images_per_s']:.2f}")
+
+    # 7. pyramid maps and gradients
+    launches["pyramid"], pyr_checks = run_pyramid(frame)
+    checks.update(pyr_checks)
+
     for what, good in checks.items():
         print(f"check {what}: {'ok' if good else 'FAILED'}")
     if not all(checks.values()):
-        return _fail("VO run checks failed")
+        return _fail("path checks failed")
 
     for r in records:
-        r["launches"] = res["launches"][r["name"]]
+        r["launches"] = launches[LAUNCHES_FROM[r["name"]]][r["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,

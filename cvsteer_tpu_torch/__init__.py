@@ -9,5 +9,7 @@ CUDA kernel for Hopper (sm_90a) under kernels/csrc/, built on first use.
 Ported so far: the single-stream host VO main path (cli_vo --engine host):
 pyramid, fused G2/H2 detector, packed keypoint selection, phase
 descriptors, mutual ratio matching, RANSAC two-view bootstrap, PnP
-tracking and windowed Schur bundle adjustment.
+tracking and windowed Schur bundle adjustment; and the dense-map path
+(cli.py, the cvsteer-run CLI): fused G2/G4 output maps, the full G2 and G4
+pipelines, map pyramids and the differentiable filter bases.
 """

@@ -30,8 +30,9 @@ def main(argv=None) -> int:
     ap.add_argument("--output", default="", help="trajectory output (TUM format)")
     ap.add_argument("--engine", choices=("host", "device"), default="host")
     ap.add_argument(
-        "--device", default="",
-        help="torch device for the VO steps (default: cuda when available, else cpu)",
+        "--device", default="cuda",
+        help="torch device for the VO steps (default: cuda; cpu runs the "
+        "kernels' plain versions and must be asked for)",
     )
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--max-frames", type=int, default=0)
@@ -52,6 +53,10 @@ def main(argv=None) -> int:
         raise NotImplementedError("checkpointing (utils/checkpoint.py) is not ported yet")
 
     import torch
+
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        print("no CUDA device: pass --device cpu to run on the CPU", file=sys.stderr)
+        return 2
 
     from cvsteer_tpu_torch.io.datasets import open_sequence
     from cvsteer_tpu_torch.io.imageio import imread_gray_f32
@@ -75,9 +80,8 @@ def main(argv=None) -> int:
         print("no images found", file=sys.stderr)
         return 1
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    state = init_vo(vo_config(cfg), device=device)
-    timer = StepTimer(sync=torch.cuda.synchronize if device.startswith("cuda") else None)
+    state = init_vo(vo_config(cfg), device=args.device)
+    timer = StepTimer(sync=torch.cuda.synchronize if args.device.startswith("cuda") else None)
     n_frames = 0
     for k in range(len(seq.image_paths)):
         with timer.span("decode"):

@@ -1,9 +1,11 @@
-"""Image IO: grayscale read (the counterpart of cvsteer_tpu.io.imageio).
+"""Image IO: grayscale read and 8-bit PNG write (the counterpart of
+cvsteer_tpu.io.imageio).
 
 8-bit PNG (grayscale, gray+alpha, RGB, RGBA; not interlaced) and binary
 PGM decode with numpy and zlib alone, so sequences read on machines that
 have neither OpenCV nor PIL. Other formats go to OpenCV or PIL when one is
-installed. All reads return float32 grayscale in [0, 255].
+installed. All reads return float32 grayscale in [0, 255]. Writes are
+8-bit grayscale PNG, also numpy and zlib alone.
 """
 
 from __future__ import annotations
@@ -93,6 +95,36 @@ def _decode_pgm(data: bytes) -> Optional[np.ndarray]:
     if maxval > 255:
         return None
     return np.frombuffer(data, np.uint8, w * h, pos + 1).reshape(h, w).astype(np.float32)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(body)) + kind + body
+        + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+    )
+
+
+def imwrite_u8(path: str, img: np.ndarray) -> None:
+    """Write an 8-bit grayscale ``[H, W]`` image as PNG. Every scanline
+    uses filter 0 (None), which the reader above undoes without a
+    per-pixel loop; deflate runs at level 1, OpenCV's default PNG setting,
+    which trades a little file size for encoding speed."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"imwrite_u8 writes PNG only, got {path!r}")
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"imwrite_u8: expected [H, W], got {img.shape}")
+    h, w = img.shape
+    raw = np.zeros((h, w + 1), np.uint8)
+    raw[:, 1:] = img
+    data = (
+        _PNG_SIG
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+        + _png_chunk(b"IEND", b"")
+    )
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def imread_gray_f32(path: str) -> Optional[np.ndarray]:

@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels: build, load and launch accounting.
 
 The CUDA C++ sources under ``csrc/`` are compiled on first use with ``nvcc``
-for ``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``. The library lands in ``_build/`` (listed in .gitignore), named by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the cached library. Nothing here runs at import time:
-the CPU-only test suite imports every module of the package.
+for ``sm_90a`` (one ``nvcc -c`` per source, all started together) and linked
+into ONE shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``_build/`` (listed in .gitignore), named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads the cached library. Nothing here runs at import time: the CPU-only
+test suite imports every module of the package.
 
 Every kernel wrapper (ops.cuda_frontend, ops.cuda_desc) adds one to its
 launch count right where it launches its kernel; :func:`launch_counts` and
@@ -27,15 +28,18 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
-#: nvcc flags. ``--fmad=false`` keeps every multiply and add separately
-#: rounded, as PyTorch's elementwise ops are, so a kernel and its plain
-#: version agree to the bit where they sum in the same order.
+#: nvcc compile flags. ``--fmad=false`` keeps every multiply and add
+#: separately rounded, as PyTorch's elementwise ops are, so a kernel and its
+#: plain version agree to the bit where they sum in the same order.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("filter_bank", "pyr_down", "g2_features_full", "desc_sample")
+KERNELS = (
+    "filter_bank", "pyr_down", "g2_features_full", "desc_sample",
+    "g2_maps", "g4_maps", "filter_bank_adj",
+)
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib = None
@@ -85,28 +89,44 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcvsteer_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds, verbose: bool) -> None:
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}"
+        elif verbose and err:
+            print(err)
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library for these sources is missing.
 
-    Compiles into a temporary file and renames it into place, so a
-    concurrent build never loads a half-written library."""
+    Compiles every source to an object in parallel, links them into a
+    temporary file and renames it into place, so a concurrent build never
+    loads a half-written library."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    if verbose:
-        cmd.insert(1, "--ptxas-options=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
-    if verbose and res.stderr:
-        print(res.stderr)
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    extra = ["--ptxas-options=-v"] if verbose else []
+    units = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in units]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", o, s]
+                  for s, o in zip(units, objs)], verbose)
+        _run_all([[nvcc, "-shared", "-o", f"{out}.{tag}", *objs]], verbose)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    os.replace(f"{out}.{tag}", out)
     return out
 
 
@@ -122,6 +142,13 @@ _SIGNATURES = {
     "cvs_g2_select": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # basis, ys, xs, out, b, c, h, w, k, s, stream
     "cvs_desc_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # in, edges, dark, bright, n, h, w, t, xtaps(host), ytaps(host), bf16, stream
+    "cvs_maps_g2": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
+    # ... as cvs_maps_g2, with the G4 product list before bf16: (i, j, slot)
+    # [n_terms, 3] int32 (host), weights [n_terms] float32 (host), n_terms
+    "cvs_maps_g4": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P),
+    # grad, scratch, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
+    "cvs_filter_bank_adj": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

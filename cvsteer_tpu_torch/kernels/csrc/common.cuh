@@ -27,3 +27,78 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
     return (a + b - 1) / b;
 }
+
+// ---------------------------------------------------------------------------
+// Separable banks (kernels A, E and F)
+//
+// The three kernels share one sum-order contract with their plain versions
+// (ops/sepconv.py::filter_bank_plain, ops/cuda_frontend.py): a row pass,
+// then a column pass, each summing its taps in order from t = 0 with one
+// rounding per operation (the library builds with --fmad=false). The
+// helpers below are the only place that order is written.
+// ---------------------------------------------------------------------------
+
+constexpr int kBankMaxK = 11;
+constexpr int kBankMaxT = 17;
+
+// The taps of one bank, passed by value as a kernel parameter: the hardware
+// keeps it in the constant bank and broadcasts it to a warp, and each launch
+// carries its own taps, so banks with different taps never share a symbol.
+struct SepTaps {
+    float x[kBankMaxK][kBankMaxT];
+    float y[kBankMaxK][kBankMaxT];
+};
+
+// Host side: the [k, t] row-major tap arrays into a SepTaps.
+inline SepTaps pack_taps(const float* xtaps, const float* ytaps, int k, int t) {
+    SepTaps taps = {};
+    for (int i = 0; i < k; ++i) {
+        for (int j = 0; j < t; ++j) {
+            taps.x[i][j] = xtaps[i * t + j];
+            taps.y[i][j] = ytaps[i * t + j];
+        }
+    }
+    return taps;
+}
+
+// Stage rows [y_org, y_org + th) x columns [x_org, x_org + tw) of one plane
+// into shared memory, the block's threads striding over it: REFLECT_101
+// indices (kReflect) or zero outside the plane.
+template <bool kReflect, int TH, int TW>
+__device__ __forceinline__ void stage_tile(float (&tile)[TH][TW], const float* __restrict__ src,
+                                           int h, int w, int y_org, int x_org, int th, int tw) {
+    for (int i = threadIdx.x; i < th * tw; i += blockDim.x) {
+        const int ty = i / tw, tx = i - (i / tw) * tw;
+        const int gy = y_org + ty, gx = x_org + tx;
+        if (kReflect) {
+            tile[ty][tx] = src[(size_t)reflect101(gy, h) * w + reflect101(gx, w)];
+        } else {
+            tile[ty][tx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? src[(size_t)gy * w + gx]
+                                                                     : 0.0f;
+        }
+    }
+}
+
+// Row pass of filter k over the first th staged rows: rows[y][c] =
+// sum_t x_k[t] tile[y][c + t] (the correlation) or, kFlip, sum_t x_k[t]
+// tile[y][c + T - 1 - t] (its transpose).
+template <bool kFlip, int TH, int TW, int RW>
+__device__ __forceinline__ void row_pass(const float (&tile)[TH][TW], float (&rows)[TH][RW],
+                                         const SepTaps& taps, int k, int T, int th) {
+    for (int i = threadIdx.x; i < th * RW; i += blockDim.x) {
+        const int y = i / RW, c = i - (i / RW) * RW;
+        float a = tile[y][c + (kFlip ? T - 1 : 0)] * taps.x[k][0];
+        for (int t = 1; t < T; ++t) a = a + tile[y][c + (kFlip ? T - 1 - t : t)] * taps.x[k][t];
+        rows[y][c] = a;
+    }
+}
+
+// Column pass of filter k at row y, column c of the row buffer:
+// sum_t y_k[t] rows[y + t][c] or, kFlip, sum_t y_k[t] rows[y + T - 1 - t][c].
+template <bool kFlip, int TH, int RW>
+__device__ __forceinline__ float col_at(const float (&rows)[TH][RW], const SepTaps& taps, int k,
+                                        int T, int y, int c) {
+    float a = rows[y + (kFlip ? T - 1 : 0)][c] * taps.y[k][0];
+    for (int t = 1; t < T; ++t) a = a + rows[y + (kFlip ? T - 1 - t : t)][c] * taps.y[k][t];
+    return a;
+}

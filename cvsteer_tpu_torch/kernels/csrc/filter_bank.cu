@@ -18,29 +18,22 @@
 // plus its reflected halo in shared memory ONCE and runs all K filters
 // from there (row pass into a shared row buffer, then the column pass), so
 // the image is read from device memory once per tile and every output
-// element is written exactly once, in coalesced rows. The taps travel as a
-// by-value kernel parameter, which the hardware keeps in the constant bank
-// and broadcasts to all threads of a warp; each launch carries its own
-// taps, so banks with different taps never share a symbol.
+// element is written exactly once, in coalesced rows. The staging, the
+// passes and the by-value taps (SepTaps) are common.cuh's, shared with
+// kernels E and F.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxK = 11;
 constexpr int kMaxT = 13;
 constexpr int kMaxR = (kMaxT - 1) / 2;
 constexpr int kTileW = 64;
 constexpr int kTileH = 32;
 constexpr int kThreads = 256;
 
-struct BankTaps {
-    float x[kMaxK][kMaxT];
-    float y[kMaxK][kMaxT];
-};
-
 __global__ void __launch_bounds__(kThreads)
 filter_bank_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   int h, int w, int K, int T, const BankTaps taps) {
+                   int h, int w, int K, int T, const SepTaps taps) {
     __shared__ float tile[kTileH + 2 * kMaxR][kTileW + 2 * kMaxR];
     __shared__ float rows[kTileH + 2 * kMaxR][kTileW];
 
@@ -48,38 +41,20 @@ filter_bank_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int x0 = blockIdx.x * kTileW;
     const int y0 = blockIdx.y * kTileH;
     const int img = blockIdx.z;
-    const int tid = threadIdx.x;
-    const float* src = in + (size_t)img * h * w;
+    const size_t plane = (size_t)h * w;
     const int th = kTileH + 2 * r;
-    const int tw = kTileW + 2 * r;
 
-    for (int i = tid; i < th * tw; i += kThreads) {
-        const int ty = i / tw, tx = i - (i / tw) * tw;
-        const int gy = reflect101(y0 - r + ty, h);
-        const int gx = reflect101(x0 - r + tx, w);
-        tile[ty][tx] = src[(size_t)gy * w + gx];
-    }
+    stage_tile<true>(tile, in + img * plane, h, w, y0 - r, x0 - r, th, kTileW + 2 * r);
     __syncthreads();
 
-    const size_t plane = (size_t)h * w;
     for (int k = 0; k < K; ++k) {
-        // row pass over every staged row (the column pass needs the halo)
-        for (int i = tid; i < th * kTileW; i += kThreads) {
-            const int ty = i / kTileW, tx = i % kTileW;
-            float acc = tile[ty][tx] * taps.x[k][0];
-            for (int t = 1; t < T; ++t) acc = acc + tile[ty][tx + t] * taps.x[k][t];
-            rows[ty][tx] = acc;
-        }
+        row_pass<false>(tile, rows, taps, k, T, th);  // the column pass needs the halo rows
         __syncthreads();
         float* dst = out + ((size_t)img * K + k) * plane;
-        for (int i = tid; i < kTileH * kTileW; i += kThreads) {
+        for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
             const int oy = i / kTileW, ox = i % kTileW;
             const int gy = y0 + oy, gx = x0 + ox;
-            if (gy < h && gx < w) {
-                float acc = rows[oy][ox] * taps.y[k][0];
-                for (int t = 1; t < T; ++t) acc = acc + rows[oy + t][ox] * taps.y[k][t];
-                dst[(size_t)gy * w + gx] = acc;
-            }
+            if (gy < h && gx < w) dst[(size_t)gy * w + gx] = col_at<false>(rows, taps, k, T, oy, ox);
         }
         __syncthreads();  // rows[] is rewritten by the next filter
     }
@@ -90,19 +65,13 @@ filter_bank_kernel(const float* __restrict__ in, float* __restrict__ out,
 CVS_EXPORT int cvs_filter_bank(const float* in, float* out, int n, int h, int w,
                                int k, int t, const float* xtaps, const float* ytaps,
                                void* stream) {
-    if (k < 1 || k > kMaxK || t < 1 || t > kMaxT || (t % 2) == 0 || n < 1 ||
+    if (k < 1 || k > kBankMaxK || t < 1 || t > kMaxT || (t % 2) == 0 || n < 1 ||
         h < 1 || w < 1) {
         return (int)cudaErrorInvalidValue;
     }
-    BankTaps taps = {};
-    for (int i = 0; i < k; ++i) {
-        for (int j = 0; j < t; ++j) {
-            taps.x[i][j] = xtaps[i * t + j];
-            taps.y[i][j] = ytaps[i * t + j];
-        }
-    }
     dim3 grid(ceil_div(w, kTileW), ceil_div(h, kTileH), n);
-    filter_bank_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(in, out, h, w, k, t, taps);
+    filter_bank_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        in, out, h, w, k, t, pack_taps(xtaps, ytaps, k, t));
     return (int)cudaGetLastError();
 }
 

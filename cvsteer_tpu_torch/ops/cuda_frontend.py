@@ -1,4 +1,4 @@
-"""Front-end kernels A, B and C with their plain PyTorch versions.
+"""Front-end kernels A, B, C, E and F with their plain PyTorch versions.
 
 The port's counterpart of cvsteer_tpu.ops.pallas_frontend:
 
@@ -7,7 +7,12 @@ The port's counterpart of cvsteer_tpu.ops.pallas_frontend:
 - :func:`pyr_down` (kernel B, ``kernels/csrc/pyr_down.cu``) — cv2.pyrDown;
 - :func:`g2_features_full` (kernel C, ``kernels/csrc/g2_features.cu``, on
   top of kernel A) — the per-level detector maps
-  ``(p3, dy, dx, ct, st, basis)``.
+  ``(p3, dy, dx, ct, st, basis)``;
+- :func:`g2_maps` / :func:`g4_maps` (kernel E, ``kernels/csrc/g2_maps.cu``,
+  one fused kernel per filter order) — image -> the three output maps
+  ``(edges, lines_dark, lines_bright)``, the basis never leaving registers;
+- :func:`filter_bank_diff` (autograd.Function): forward kernel A, backward
+  :func:`filter_bank_adjoint` (kernel F, ``kernels/csrc/filter_bank_adj.cu``).
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises (there is no fallback), and it
@@ -19,6 +24,7 @@ what the card's kernel checks compare against.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -26,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from cvsteer_tpu_torch import kernels
-from cvsteer_tpu_torch.ops.sepconv import filter_bank_plain
+from cvsteer_tpu_torch.ops.sepconv import filter_bank_plain, reflect_indices
 
 #: Masked-score sentinel of the packed pooled selection map (p3): the most
 #: negative float32 exactly representable in bfloat16 (-255 * 2^120), with
@@ -256,3 +262,255 @@ def g2_features_full(
     )
     kernels.check(err, "g2_features_full/select")
     return p3, dy, dx, ct, st, basis
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: fused output maps (G2 and G4)
+# ---------------------------------------------------------------------------
+#
+# The sqrt-free steering tails of the reference's _g2_maps_tiled_kernel
+# (modes "maps" and "g4maps"). With (u, v) = (cos 2t, sin 2t) = (c2, c3)/rho
+# the half-angle powers are polynomials in u and v, so the steered pair
+# needs no transcendental; rho == 0 steers to theta = 0 (u = 1, v = 0) as
+# arctan2(0, 0) does. The three maps consume only the steered even response
+# (with its sign) and the square of the odd one. Every expression below is
+# written in the kernel's order with one rounding per operation, and
+# 1 / sqrt(x) is a division by a correctly rounded sqrt (as the kernel's
+# 1.0f / sqrtf(x)), so kernel and plain version agree to the bit.
+
+_MAPS_MAX_T = 17  # kernel E: taps of radius <= 8, the TPU kernel's limit too
+
+
+def _maps_out(gv, gsq, hsq, out_dtype):
+    mag2 = gsq + hsq
+    inv_mag = torch.where(mag2 > 0.0, 1.0 / torch.sqrt(mag2), 0.0)
+    edges = hsq * inv_mag
+    gsq_over_mag = gsq * inv_mag
+    dark = torch.where(gv > 0.0, gsq_over_mag, 0.0)
+    bright = torch.where(gv < 0.0, gsq_over_mag, 0.0)
+    return tuple(m.to(out_dtype) for m in (edges, dark, bright))
+
+
+def _unit_harmonic(c2, c3):
+    """(u, v) = (cos 2t, sin 2t), with (1, 0) where c2 = c3 = 0."""
+    s2 = c2 * c2 + c3 * c3
+    pos = s2 > 0.0
+    inv_rho = torch.where(pos, 1.0 / torch.sqrt(s2), 0.0)
+    return torch.where(pos, c2 * inv_rho, 1.0), c3 * inv_rho
+
+
+def g2_maps_tail(basis: torch.Tensor, out_dtype=torch.float32):
+    """(edges, dark, bright) from the G2/H2 basis ``[..., 7, H, W]``."""
+    g2a, g2b, g2c, h2a, h2b, h2c, h2d = [basis[..., k, :, :] for k in range(7)]
+    s_gd = g2a + g2c
+    d_gd = g2a - g2c
+    c2 = (
+        0.5 * (s_gd * d_gd)
+        + 0.46875 * (h2a * h2a - h2d * h2d)
+        + 0.28125 * (h2b * h2b - h2c * h2c)
+        + 0.1875 * (h2a * h2c - h2b * h2d)
+    )
+    c3 = (
+        -(g2b * s_gd) - 0.9375 * (h2c * h2d + h2a * h2b)
+        - 1.6875 * h2b * h2c - 0.1875 * h2a * h2d
+    )
+    u, v = _unit_harmonic(c2, c3)
+    g2v = 0.5 * (s_gd + u * d_gd) - v * g2b
+    P = 0.5 * ((h2a + 3.0 * h2c) + u * (h2a - 3.0 * h2c))
+    Q = 0.5 * ((3.0 * h2b + h2d) + u * (3.0 * h2b - h2d))
+    PP, QQ = P * P, Q * Q
+    h2sq = torch.clamp_min(0.5 * ((PP + QQ) + u * (PP - QQ)) - v * (P * Q), 0.0)
+    return _maps_out(g2v, g2v * g2v, h2sq, out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def g4_live_terms():
+    """The G4 second-harmonic product list that kernel E walks: the 33
+    ``(i, j, w2, w3)`` terms of filters.g4.g4_quad_terms in order, each as
+    ``(i, j, slot, w)`` — ``c2 += w b_i b_j`` for slot 0, ``c3`` for slot 1
+    — with the one weight the reference kernel keeps (``|w| > 1e-7``)."""
+    from cvsteer_tpu_torch.filters.g4 import g4_quad_terms
+
+    out = []
+    for i, j, w2, w3 in g4_quad_terms():
+        live = [(slot, w) for slot, w in enumerate((w2, w3)) if abs(w) > 1e-7]
+        if len(live) != 1:
+            raise ValueError(f"G4 product ({i}, {j}) has {len(live)} live weights, not 1")
+        (slot, w), = live
+        out.append((i, j, slot, float(np.float32(w))))
+    return tuple(out)
+
+
+def g4_maps_tail(basis: torch.Tensor, out_dtype=torch.float32):
+    """(edges, dark, bright) from the G4/H4 basis ``[..., 11, H, W]``."""
+    b = [basis[..., k, :, :] for k in range(11)]
+    c = [torch.zeros_like(b[0]), torch.zeros_like(b[0])]
+    for i, j, slot, w in g4_live_terms():
+        c[slot] = c[slot] + (b[i] * b[j]) * w
+    c2, c3 = c
+    u, v = _unit_harmonic(c2, c3)
+    cc = 0.5 * (1.0 + u)
+    ss = 0.5 * (1.0 - u)
+    cc2, ss2, cs = cc * cc, ss * ss, cc * ss
+    g4v = (
+        cc2 * b[0] + 6.0 * cs * b[2] + ss2 * b[4]
+        - 2.0 * v * (cc * b[1] + ss * b[3])
+    )
+    P = cc2 * b[5] + 10.0 * cs * b[7] + 5.0 * ss2 * b[9]
+    Q = 5.0 * cc2 * b[6] + 10.0 * cs * b[8] + ss2 * b[10]
+    PP, QQ = P * P, Q * Q
+    h4sq = torch.clamp_min(0.5 * ((PP + QQ) + u * (PP - QQ)) - v * (P * Q), 0.0)
+    return _maps_out(g4v, g4v * g4v, h4sq, out_dtype)
+
+
+def g2_maps_plain(image: torch.Tensor, xtaps, ytaps, out_dtype=torch.float32):
+    return g2_maps_tail(filter_bank_plain(image, xtaps, ytaps), out_dtype)
+
+
+def g4_maps_plain(image: torch.Tensor, xtaps, ytaps, out_dtype=torch.float32):
+    return g4_maps_tail(filter_bank_plain(image, xtaps, ytaps), out_dtype)
+
+
+def _maps(image, xtaps, ytaps, out_dtype, order: int):
+    xt = np.ascontiguousarray(xtaps, np.float32)
+    yt = np.ascontiguousarray(ytaps, np.float32)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    plain = g2_maps_plain if order == 2 else g4_maps_plain
+    if _on_cpu(image):
+        return plain(image, xt, yt, out_dtype)
+    _require(image, "image", 2)
+    K, T = xt.shape
+    if K != (7 if order == 2 else 11) or yt.shape != (K, T) or T > _MAPS_MAX_T or T % 2 == 0:
+        raise ValueError(f"g{order}_maps: unsupported taps {xt.shape}/{yt.shape}")
+    *batch, h, w = image.shape
+    n = int(np.prod(batch)) if batch else 1
+    maps = tuple(torch.empty_like(image, dtype=out_dtype) for _ in range(3))
+    if n == 0:
+        return maps
+    lib = kernels.library()
+    name = f"g{order}_maps"
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    args = [image.data_ptr(), *(m.data_ptr() for m in maps), n, h, w, T, ptr(xt), ptr(yt)]
+    if order == 4:
+        terms = g4_live_terms()
+        idx = np.array([t[:3] for t in terms], np.int32)
+        wts = np.array([t[3] for t in terms], np.float32)
+        args += [ptr(idx), ptr(wts), len(terms)]
+    kernels.count_launch(name)
+    err = getattr(lib, f"cvs_maps_g{order}")(
+        *args, int(out_dtype == torch.bfloat16), kernels.stream_handle(image.device)
+    )
+    kernels.check(err, name)
+    return maps
+
+
+def g2_maps(image: torch.Tensor, xtaps, ytaps, out_dtype=torch.float32):
+    """Fused G2/H2 front-end: ``image [..., H, W]`` float32 ->
+    ``(edges, lines_dark, lines_bright)`` in ``out_dtype`` (float32 or
+    bfloat16). One image read, three map writes (kernel E)."""
+    return _maps(image, xtaps, ytaps, out_dtype, order=2)
+
+
+def g4_maps(image: torch.Tensor, xtaps, ytaps, out_dtype=torch.float32):
+    """Fused G4/H4 front-end: the 11-filter bank, then the second-harmonic
+    quadratic form (33 products) and the 4th/5th-degree steering tail
+    (kernel E, G4 instantiation)."""
+    return _maps(image, xtaps, ytaps, out_dtype, order=4)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: adjoint of the bank (the gradient of filter_bank)
+# ---------------------------------------------------------------------------
+
+
+def _fold_reflect(gp: torch.Tensor, n: int, r: int, dim: int) -> torch.Tensor:
+    """Fold a REFLECT_101-padded axis (``n + 2r`` long) back onto ``n``:
+    ``out[a] = sum of gp[x + r] over x in [-r, n + r) with reflect(x) = a``,
+    x ascending (the kernel's order). Periodic, so it stays right where the
+    pad exceeds the dimension."""
+    out = torch.zeros_like(gp.narrow(dim, 0, n))
+    for j, a in enumerate(reflect_indices(-r, 0, n).tolist()):
+        out.select(dim, a).add_(gp.select(dim, j))
+    out = out + gp.narrow(dim, r, n)
+    for j, a in enumerate(reflect_indices(n, n + r, n).tolist()):
+        out.select(dim, a).add_(gp.select(dim, n + r + j))
+    return out
+
+
+def filter_bank_adjoint_plain(grad: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
+    """The explicit adjoint of filter_bank_plain: ``grad [..., K, H, W]`` ->
+    ``[..., H, W]``. Transpose row pass (flipped taps over the zero-extended
+    gradient), transpose column pass, sum over K in order, then fold the
+    padded border back through the REFLECT_101 map."""
+    xt = torch.as_tensor(np.asarray(xtaps, np.float32), device=grad.device)
+    yt = torch.as_tensor(np.asarray(ytaps, np.float32), device=grad.device)
+    K, T = xt.shape
+    R = T - 1
+    *_, h, w = grad.shape
+    hp, wp = h + R, w + R
+    xk = xt[:, :, None, None]
+    yk = yt[:, :, None, None]
+    gz = F.pad(grad.to(torch.float32), (R, R))
+    row = gz[..., R : R + wp] * xk[:, 0]
+    for u in range(1, T):
+        row = row + gz[..., R - u : R - u + wp] * xk[:, u]
+    rz = F.pad(row, (0, 0, R, R))
+    col = rz[..., R : R + hp, :] * yk[:, 0]
+    for v in range(1, T):
+        col = col + rz[..., R - v : R - v + hp, :] * yk[:, v]
+    gpad = col[..., 0, :, :]
+    for k in range(1, K):
+        gpad = gpad + col[..., k, :, :]
+    r = R // 2
+    return _fold_reflect(_fold_reflect(gpad, h, r, -2), w, r, -1)
+
+
+def filter_bank_adjoint(grad: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
+    """``grad [..., K, H, W]`` -> ``[..., H, W]`` (kernel F: two launches,
+    the transpose correlation into an ``[N, H + 2r, W + 2r]`` buffer, then
+    the reflect fold)."""
+    xt = np.ascontiguousarray(xtaps, np.float32)
+    yt = np.ascontiguousarray(ytaps, np.float32)
+    if _on_cpu(grad):
+        return filter_bank_adjoint_plain(grad, xt, yt)
+    _require(grad, "grad", 3)
+    K, T = xt.shape
+    if yt.shape != (K, T) or K > 11 or T > 13 or T % 2 == 0 or grad.shape[-3] != K:
+        raise ValueError(
+            f"filter_bank_adjoint: grad {tuple(grad.shape)}, taps {xt.shape}/{yt.shape}"
+        )
+    *batch, _, h, w = grad.shape
+    n = int(np.prod(batch)) if batch else 1
+    out = torch.empty(tuple(batch) + (h, w), dtype=torch.float32, device=grad.device)
+    if n == 0:
+        return out
+    scratch = torch.empty((n, h + T - 1, w + T - 1), dtype=torch.float32, device=grad.device)
+    lib = kernels.library()
+    kernels.count_launch("filter_bank_adj")
+    err = lib.cvs_filter_bank_adj(
+        grad.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, h, w, K, T,
+        xt.ctypes.data_as(ctypes.c_void_p), yt.ctypes.data_as(ctypes.c_void_p),
+        kernels.stream_handle(grad.device),
+    )
+    kernels.check(err, "filter_bank_adj")
+    return out
+
+
+class _FilterBankDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, image, xt, yt):
+        ctx.taps = (xt, yt)
+        return filter_bank(image, xt, yt)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return filter_bank_adjoint(grad.contiguous(), *ctx.taps), None, None
+
+
+def filter_bank_diff(image: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
+    """Differentiable :func:`filter_bank`: forward kernel A, backward kernel
+    F (the reference's filter_bank_pallas_diff, whose VJP was XLA's)."""
+    xt = np.ascontiguousarray(xtaps, np.float32)
+    yt = np.ascontiguousarray(ytaps, np.float32)
+    return _FilterBankDiff.apply(image.to(torch.float32).contiguous(), xt, yt)

@@ -119,7 +119,7 @@ class Keyframe:
 @dataclasses.dataclass
 class VOState:
     config: VOConfig
-    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cuda"))
     keyframes: List[Keyframe] = dataclasses.field(default_factory=list)
     landmarks: Optional[np.ndarray] = None  # [max_landmarks, 3]
     landmark_valid: Optional[np.ndarray] = None  # [max_landmarks]
@@ -161,7 +161,7 @@ _NOT_PORTED = (
 )
 
 
-def init_vo(config: VOConfig = VOConfig(), device="cpu") -> VOState:
+def init_vo(config: VOConfig = VOConfig(), device="cuda") -> VOState:
     """A fresh VO state whose device steps run on ``device``."""
     for name, default, msg in _NOT_PORTED:
         if getattr(config, name) != default:

@@ -15,6 +15,7 @@ import torch
 
 from cvsteer_tpu_torch.features.frontend import Features, FrontendConfig
 from cvsteer_tpu_torch.filters.g2 import G2Bank
+from cvsteer_tpu_torch.filters.g4 import G4Bank
 from cvsteer_tpu_torch.filters.taps import SeparableBank
 from cvsteer_tpu_torch.geometry.camera import Intrinsics
 from cvsteer_tpu_torch.slam.vo import VOConfig
@@ -29,9 +30,8 @@ def separable_bank(bank) -> SeparableBank:
     )
 
 
-def g2_bank(bank) -> G2Bank:
-    """A reference G2Bank (xtaps, ytaps, width, spacing) -> the port's."""
-    return G2Bank(
+def _bank(cls, bank):
+    return cls(
         xtaps=np.asarray(bank.xtaps, np.float32),
         ytaps=np.asarray(bank.ytaps, np.float32),
         width=int(bank.width),
@@ -39,7 +39,17 @@ def g2_bank(bank) -> G2Bank:
     )
 
 
-def features(f, device="cpu") -> Features:
+def g2_bank(bank) -> G2Bank:
+    """A reference G2Bank (xtaps, ytaps, width, spacing) -> the port's."""
+    return _bank(G2Bank, bank)
+
+
+def g4_bank(bank) -> G4Bank:
+    """A reference G4Bank (xtaps, ytaps, width, spacing) -> the port's."""
+    return _bank(G4Bank, bank)
+
+
+def features(f, device="cuda") -> Features:
     """A reference Features (arrays of any array type) -> the port's
     tensors on ``device``, with the reference's dtypes."""
     def t(a, dtype):

@@ -64,6 +64,50 @@ def test_torch_cuda_kernels_match_plain(cuda, shape):
         assert after[name] > before[name]
 
 
+@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (1, 185, 256), (2, 5, 9)])
+def test_torch_cuda_maps_kernels_match_plain(cuda, shape):
+    """Kernel E (G2, float32 and bfloat16 maps) and its G4 instantiation
+    against their plain versions on the same card: fp32 arithmetic in the
+    same order, bar 1e-5 of each map's scale."""
+    img = torch.from_numpy(_texture(shape)).to(cuda)
+    before = kernels.launch_counts()
+    for fn, plain, bank in ((cf.g2_maps, cf.g2_maps_plain, taps.g2h2_bank()),
+                            (cf.g4_maps, cf.g4_maps_plain, taps.g4h4_bank())):
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fn(img, bank.xtaps, bank.ytaps, out_dtype=dtype)
+            want = plain(img, bank.xtaps, bank.ytaps, out_dtype=dtype)
+            for g, w in zip(got, want):
+                assert g.dtype == dtype and g.shape == img.shape
+                assert (g.float() - w.float()).abs().max().item() <= 1e-5 * max(w.float().abs().max().item(), 1e-30)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["g2_maps"] == before["g2_maps"] + 2
+    assert after["g4_maps"] == before["g4_maps"] + 2
+
+
+@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (1, 185, 256), (2, 2), (1, 1), (3, 5)])
+def test_torch_cuda_filter_bank_adjoint_matches_plain(cuda, shape):
+    """Kernel F against the explicit plain adjoint (same order: bar 1e-5 of
+    scale) and against autograd through the plain bank; the gradient of
+    filter_bank_diff launches it."""
+    img = torch.from_numpy(_texture(shape, seed=8)).to(cuda)
+    for bank in (taps.g2h2_bank(), taps.g4h4_bank()):
+        g = torch.randn(tuple(shape[:-2]) + (bank.xtaps.shape[0],) + tuple(shape[-2:]), device=cuda)
+        got = cf.filter_bank_adjoint(g, bank.xtaps, bank.ytaps)
+        want = cf.filter_bank_adjoint_plain(g, bank.xtaps, bank.ytaps)
+        assert got.shape == img.shape
+        scale = max(want.abs().max().item(), g.abs().sum().item() / g.numel())
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+        x = img.clone().requires_grad_()
+        (ref,) = torch.autograd.grad(filter_bank_plain(x, bank.xtaps, bank.ytaps), x, g)
+        assert (got - ref).abs().max().item() <= 1e-4 * scale
+        before = kernels.launch_counts()["filter_bank_adj"]
+        x = img.clone().requires_grad_()
+        (gd,) = torch.autograd.grad(cf.filter_bank_diff(x, bank.xtaps, bank.ytaps), x, g)
+        assert kernels.launch_counts()["filter_bank_adj"] == before + 1
+        assert torch.equal(gd, got)
+
+
 def test_torch_cuda_wrappers_raise_on_unsupported_input(cuda):
     xt = taps.g2h2_bank().xtaps
     with pytest.raises(TypeError):
@@ -72,6 +116,10 @@ def test_torch_cuda_wrappers_raise_on_unsupported_input(cuda):
         cf.filter_bank(torch.zeros((8, 16), device=cuda).T, xt, xt)
     with pytest.raises(ValueError):
         cf.filter_bank(torch.zeros((8, 8), device=cuda), np.zeros((12, 9)), np.zeros((12, 9)))
+    with pytest.raises(ValueError):  # the G2 maps kernel takes the 7-filter bank only
+        cf.g2_maps(torch.zeros((8, 8), device=cuda), np.zeros((11, 9)), np.zeros((11, 9)))
+    with pytest.raises(ValueError):
+        cf.filter_bank_adjoint(torch.zeros((7, 8, 8), device=cuda), np.zeros((7, 15)), np.zeros((7, 15)))
 
 
 def test_torch_cuda_vo_step_on_the_card(cuda):
@@ -86,4 +134,5 @@ def test_torch_cuda_vo_step_on_the_card(cuda):
     for k in range(0, 8, 4):
         state = process_image(state, seq.render(k))
     assert state.keyframes[0].features.desc.device.type == "cuda"
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("filter_bank", "pyr_down", "g2_features_full", "desc_sample"))

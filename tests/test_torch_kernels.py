@@ -195,7 +195,8 @@ def test_torch_descriptor_sampling_matches_pair_table_path():
     assert np.abs(dgot - dref).max() < 2e-2
 
 
-@pytest.mark.parametrize("wrapper", ["filter_bank", "pyr_down", "g2_features_full", "sample_patches"])
+@pytest.mark.parametrize("wrapper", ["filter_bank", "pyr_down", "g2_features_full", "sample_patches",
+                                     "g2_maps", "g4_maps", "filter_bank_adjoint"])
 def test_torch_wrappers_refuse_other_devices(wrapper):
     """A wrapper takes its plain version only for CPU tensors; any other
     device that is not CUDA is refused (never silently moved)."""
@@ -206,6 +207,9 @@ def test_torch_wrappers_refuse_other_devices(wrapper):
         "pyr_down": lambda: cf.pyr_down(x[0, 0]),
         "g2_features_full": lambda: cf.g2_features_full(x[0, 0], xt, xt, threshold=1.0),
         "sample_patches": lambda: cd.sample_patches(x, x[:, 0], x[:, 0]),
+        "g2_maps": lambda: cf.g2_maps(x[0, 0], xt, xt),
+        "g4_maps": lambda: cf.g4_maps(x[0, 0], jtaps.g4h4_bank().xtaps, jtaps.g4h4_bank().ytaps),
+        "filter_bank_adjoint": lambda: cf.filter_bank_adjoint(x[0], xt, xt),
     }[wrapper]
     with pytest.raises(ValueError):
         call()

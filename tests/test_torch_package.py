@@ -85,7 +85,7 @@ def test_torch_cli_vo_refuses_unported_modes(tmp_path):
 )
 def test_torch_vo_refuses_unported_options(field, value):
     with pytest.raises(NotImplementedError, match="later PR"):
-        init_vo(VOConfig()._replace(**{field: value}))
+        init_vo(VOConfig()._replace(**{field: value}), device="cpu")
 
 
 def test_torch_imread_matches_opencv(tmp_path):

@@ -31,12 +31,12 @@ def test_torch_vo_synthetic_stream_meets_reference_bars():
         intrinsics=convert.intrinsics(ref.K), kf_max_gap=5, window=8,
         track_min_landmarks=30,
     )
-    state = init_vo(cfg)
+    state = init_vo(cfg, device="cpu")
     gt = []
     for k in range(n_frames):
         R, t = ref._gt_pose(k, n_frames)
         gt.append((R, t))
-        state = process_frame(state, convert.features(ref._render_features(X, desc, R, t, rng)))
+        state = process_frame(state, convert.features(ref._render_features(X, desc, R, t, rng), device="cpu"))
     state = finalize(state)
 
     assert state.initialized
