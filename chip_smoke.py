@@ -14,16 +14,21 @@ Phases (any failure exits non-zero and prints no result line):
              committed 185x256 fish image.
 4. kernels — run each kernel's wrapper and its plain PyTorch version on the
              same inputs at its path's shapes; check the error against the
-             stated tolerance; time kernel, plain version and, where one
-             PyTorch call computes the same function, that call (CUDA-event
-             medians of 25 runs after warm-up); compute each kernel's bound
+             stated tolerance (C, D and E′: bit for bit); time kernel, plain
+             version and, where one PyTorch call computes the same function,
+             that call, two ways: device_ms, the device time of 25 calls
+             inside torch.profiler over 25, and call_ms, CUDA events around
+             one call on an idle card (median of 25: what a caller that
+             waits pays, host work included); compute each kernel's bound
              from the shapes.
 5. VO      — the port's default-configuration VO on a rendered scene with
              known poses (fx = fy = 500, cx = 320, cy = 240) through init_vo
              -> process_image -> finalize, the loop of
              cvsteer_tpu_torch.cli_vo.main; check initialization, one pose
              per frame, the ATE against a bound derived from the scene's
-             geometry, and that kernels A-D launched.
+             geometry, and the front-end's launches per frame (B 4, C 1,
+             D 1, A 0); then a second run profiled over 5 warm frames:
+             device kernels per frame, device busy share, features span.
 6. CLI     — cvsteer_tpu_torch.cli.main on a list of the 64 frames and one
              unreadable entry, with --filters g2 and then g4 (default
              --batch 16): 192 PNGs per run, each within 1 gray level of the
@@ -35,7 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
              frame against the same maps from the plain versions of the
              kernels, and d sum(basis^2) / d image through g2_basis and
              g4_basis against autograd through the plain bank; kernels A, B
-             and F launched.
+             and F launched (A's launch count in the JSON line is this
+             phase's).
 
 Each path phase (5-7) sets the launch counts to 0 just before it and reads
 them just after. The line before the last is the per-kernel JSON record;
@@ -48,6 +54,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,8 +63,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 TOL_REL = 1e-5  # fp32 kernels vs their plain versions, relative to scale
 TOL_PYR = 255 * 3e-5 + 1e-3  # cv2.pyrDown parity bar of the reference tests
-TOL_ORIENT = 1e-4  # ct/st/dy/dx (unit scale)
-MIN_KEEP_AGREE = 0.999  # p3 keep-mask agreement
 TOL_GRAD = 1e-3  # gradient vs autograd through the plain bank (the reference's bar)
 MIN_U8_EQUAL = 0.999  # CLI maps equal to the plain path's 8-bit maps
 GOLDEN_L1 = 2.5  # mean L1 vs the decoded goldens (tests/test_golden.py, no recode)
@@ -72,15 +77,20 @@ FP32_FLOPS_PER_S = 67e12
 CLI_FRAMES, CLI_HW, CLI_BATCH = 64, (512, 512), 16
 MAPS = ("edges", "lines_dark", "lines_bright")
 PATH_KERNELS = {  # phase -> the kernels its path must launch
-    "vo": ("filter_bank", "pyr_down", "g2_features_full", "desc_sample"),
+    "vo": ("pyr_down", "g2_features_full", "desc_sample"),
     "cli_g2": ("g2_maps",),
     "cli_g4": ("g4_maps",),
     "pyramid": ("filter_bank", "pyr_down", "filter_bank_adj"),
 }
-LAUNCHES_FROM = {  # kernel -> the phase whose launch count the JSON line reports
-    "filter_bank": "vo", "pyr_down": "vo", "g2_features_full": "vo", "desc_sample": "vo",
-    "g2_maps": "cli_g2", "g4_maps": "cli_g4", "filter_bank_adj": "pyramid",
+VO_LAUNCHES_PER_FRAME = {  # the VO front-end: B per pyramid step, one C and one D per frame
+    "filter_bank": 0, "pyr_down": 4, "g2_features_full": 1, "desc_sample": 1,
 }
+LAUNCHES_FROM = {  # kernel -> the phase whose launch count the JSON line reports
+    "filter_bank": "pyramid", "pyr_down": "vo", "g2_features_full": "vo", "desc_sample": "vo",
+    "g2_maps": "cli_g2", "g4_maps": "cli_g4", "filter_bank_adj": "pyramid",
+    "g2_feature_maps": None,  # E′: no path in either package calls it
+}
+VO_PROFILE_WARM, VO_PROFILE_FRAMES = 10, 5
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "cvsteer_tpu_torch", "io", "golden")
 
@@ -90,8 +100,11 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def cuda_ms(fn, reps: int = 25) -> float:
-    """Median device time of ``fn`` in ms (CUDA events, after warm-up)."""
+def call_ms(fn, reps: int = 25) -> float:
+    """What one call of ``fn`` costs a caller that waits for it: CUDA events
+    around one call on an idle card, median of ``reps`` after warm-up, in ms.
+    It includes the call's host work (wrapper checks, allocation, ctypes),
+    so it is not a kernel time."""
     import torch
 
     for _ in range(3):
@@ -108,6 +121,100 @@ def cuda_ms(fn, reps: int = 25) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _named(kernel: str, name: str) -> bool:
+    """Whether a device event's (demangled or mangled) kernel name is the
+    CUDA function ``name``."""
+    return bool(re.search(rf"(?<![A-Za-z0-9_]){name}(?=[<(])", kernel)) or f"{len(name)}{name}E" in kernel
+
+
+def device_time_attr() -> str:
+    """The FunctionEvent attribute this torch names a device event's time
+    under (``device_time_total``; ``cuda_time_total`` in older releases)."""
+    from torch.autograd.profiler_util import FunctionEvent
+
+    return "device_time_total" if hasattr(FunctionEvent, "device_time_total") else "cuda_time_total"
+
+
+def _device_events(fn, names, reps: int):
+    """(summed device time in us, event count) of ``reps`` calls of ``fn``
+    inside torch.profiler: the kernels of the CUDA functions ``names``, or
+    with no names every device kernel, memset and copy; the profiler's own
+    annotations never."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    attr = device_time_attr()
+    total_us, n = 0.0, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        if names and not any(_named(evt.name, nm) for nm in names):
+            continue
+        total_us += getattr(evt, attr)
+        n += 1
+    return total_us, n
+
+
+def device_ms(fn, names=(), per_call=None, reps: int = 25, tries: int = 5):
+    """Device time of one call of ``fn`` in ms, from ``reps`` calls after
+    warm-up inside torch.profiler. No L2 flush: on every path a kernel reads
+    what the one before it has just written.
+
+    A hand-written kernel (``names`` and ``per_call``, the CUDA launches
+    one call makes): the mean duration of its kernel events times
+    ``per_call``. The profiler now and then misses a device event of a
+    window, so a window with fewer than ``per_call * reps`` events is taken
+    again, up to ``tries`` times, and the fullest one is used. Without
+    names (a plain version or a library call): the device time of every
+    event in the window over ``reps``. Returns (ms, events seen per call);
+    raises when the profiler reports no device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    if not names:
+        total_us, n = _device_events(fn, (), reps)
+        if n == 0 or total_us <= 0.0:
+            raise RuntimeError("torch.profiler reported no device time for the call")
+        return total_us / reps / 1e3, n / reps
+    best = (0.0, 0)
+    for _ in range(tries):
+        best = max(best, _device_events(fn, names, reps), key=lambda r: r[1])
+        if best[1] >= per_call * reps:
+            break
+    total_us, n = best
+    if n == 0 or total_us <= 0.0:
+        raise RuntimeError(f"torch.profiler reported no device time for {names}")
+    return total_us / n * per_call / 1e3, n / reps
+
+
+def timings(kernel, names, per_call, plain, library=None) -> dict:
+    """Device and call times (ms) of a kernel's wrapper, its plain version
+    and, where there is one, the one-call library yardstick. Each of
+    ``kernel``, ``plain`` and ``library`` is a list of calls that make up
+    one unit of work (a frame's levels, a batch); ``per_call`` is the
+    kernel launches of one call (the CUDA functions ``names``). A call time
+    is the sum of the calls' medians, a device time that of the calls
+    together."""
+    run = lambda calls: (lambda: [c() for c in calls])  # noqa: E731
+    dev, seen = device_ms(run(kernel), names, per_call * len(kernel))
+    t = dict(device_ms=dev, device_launches_per_unit=per_call * len(kernel),
+             device_events_seen_per_unit=seen, call_ms=sum(map(call_ms, kernel)),
+             plain_device_ms=device_ms(run(plain))[0], plain_call_ms=sum(map(call_ms, plain)),
+             library_device_ms=None, library_call_ms=None)
+    if library is not None:
+        t.update(library_device_ms=device_ms(run(library))[0], library_call_ms=sum(map(call_ms, library)))
+    # the contract's fields: kernel, plain and library times are device times
+    t.update(ms=t["device_ms"], plain_ms=t["plain_device_ms"], library_ms=t["library_device_ms"])
+    return t
 
 
 class Bound:
@@ -228,17 +335,21 @@ def check_kernels(frame, frames512, fish):
     shapes = [tuple(l.shape[-2:]) for l in levels]
     records, ok = [], True
 
-    def record(name, src, replaces, err, good, ms, plain_ms, library_ms, bound, **extra):
+    def record(name, src, replaces, err, good, times, bound, **extra):
         nonlocal ok
         ok &= bool(good)
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        ms = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
         b = bound.fields()
-        print(f"kernel {name}: max_abs_err {err:.3e} {'ok' if good else 'FAILED'}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound {b['bound_ms']:.4f} ms "
+        print(f"kernel {name}: max_abs_err {err:.3e} {'ok' if good else 'FAILED'}; device ms: "
+              f"kernel {ms(times['device_ms'])} ({times['device_launches_per_unit']:g} launches, "
+              f"{times['device_events_seen_per_unit']:g} seen), "
+              f"plain {ms(times['plain_device_ms'])}, library {ms(times['library_device_ms'])}; "
+              f"call ms: kernel {ms(times['call_ms'])}, plain {ms(times['plain_call_ms'])}, "
+              f"library {ms(times['library_call_ms'])}; bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}) {extra if extra else ''}")
         records.append(dict(
             name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b, **extra,
+            **times, **b, **extra,
         ))
 
     def conv_bank(taps_x, taps_y, stride=1):
@@ -270,9 +381,9 @@ def check_kernels(frame, frames512, fish):
         "filter_bank", "cvsteer_tpu_torch/kernels/csrc/filter_bank.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:142 filter_bank_pallas (+ :1311 bank_tiled_pallas)",
         err, err <= TOL_REL * scale,
-        sum(cuda_ms(lambda lv=lv: cf.filter_bank(lv, xt, yt)) for lv in levels),
-        sum(cuda_ms(lambda lv=lv: cf.filter_bank_plain(lv, xt, yt)) for lv in levels),
-        sum(cuda_ms(lambda lv=lv: conv(lv)) for lv in levels), bound,
+        timings([lambda lv=lv: cf.filter_bank(lv, xt, yt) for lv in levels], ("filter_bank_kernel",), 1,
+                [lambda lv=lv: cf.filter_bank_plain(lv, xt, yt) for lv in levels],
+                [lambda lv=lv: conv(lv) for lv in levels]), bound,
         shapes=shapes, library_abs_err=lib_err,
     )
 
@@ -291,77 +402,75 @@ def check_kernels(frame, frames512, fish):
         "pyr_down", "cvsteer_tpu_torch/kernels/csrc/pyr_down.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:1461 pyr_down_pallas",
         err, err <= TOL_PYR,
-        sum(cuda_ms(lambda lv=lv: cf.pyr_down(lv)) for lv in levels[:-1]),
-        sum(cuda_ms(lambda lv=lv: cf.pyr_down_plain(lv)) for lv in levels[:-1]),
-        sum(cuda_ms(lambda lv=lv: conv(lv)) for lv in levels[:-1]), bound,
+        timings([lambda lv=lv: cf.pyr_down(lv) for lv in levels[:-1]], ("pyr_down_kernel",), 1,
+                [lambda lv=lv: cf.pyr_down_plain(lv) for lv in levels[:-1]],
+                [lambda lv=lv: conv(lv) for lv in levels[:-1]]), bound,
         library_abs_err=lib_err,
     )
 
-    # C: the per-level detector maps on all 5 levels (basis included). Its
-    # flops: the bank, then ~70 for (score, ct, st), ~60 for the NMS window,
-    # the packed 3x3 pool and the subpixel offsets.
-    err, basis_rel, agree, off_ok, bound = 0.0, 0.0, 1.0, True, Bound()
-    per_level_out = []
-    for lv in levels:
-        ko = cf.g2_features_full(lv, xt, yt, threshold=1.0, nms_radius=2)
+    def diff(got, want):
+        """Max abs difference and bit equality of two lists of maps (p3's
+        packed bits compare as its float values do)."""
+        e = max((a - b).abs().max().item() for a, b in zip(got, want))
+        return e, all(torch.equal(a, b) for a, b in zip(got, want))
+
+    # C: the detector maps of all 5 levels (basis included) in one launch.
+    # Its flops: the bank, then ~70 for (score, ct, st), ~60 for the NMS
+    # window, the packed 3x3 pool and the subpixel offsets.
+    feats = lambda: cf.g2_features_levels(levels, xt, yt, threshold=1.0, nms_radius=2)  # noqa: E731
+    per_level_out = feats()
+    err, bits, agree, bound = 0.0, True, 1.0, Bound()
+    for lv, ko in zip(levels, per_level_out):
         po = cf.g2_features_full_plain(lv, xt, yt, threshold=1.0, nms_radius=2)
-        per_level_out.append(ko)
-        for km, pm in zip(ko[1:5], po[1:5]):  # dy, dx, ct, st
-            err = max(err, (km - pm).abs().max().item())
-        basis_rel = max(
-            basis_rel, (ko[5] - po[5]).abs().max().item() / max(po[5].abs().max().item(), 1e-30)
-        )
+        e, same = diff(ko, po)
+        err, bits = max(err, e), bits and same
         sent = cf.P3_SENTINEL * 0.5
-        kk, pk = ko[0] > sent, po[0] > sent
-        agree = min(agree, (kk == pk).float().mean().item())
-        both = kk & pk
-        off_ok &= bool(
-            ((ko[0].view(torch.int32) & 15)[both] == (po[0].view(torch.int32) & 15)[both]).all()
-        )
+        agree = min(agree, ((ko[0] > sent) == (po[0] > sent)).float().mean().item())
         px = lv.numel()
         bound.add(px * 4 * (1 + 7 + 5), bank_flops(px, xt, yt) + 130 * px)
     record(
         "g2_features_full", "cvsteer_tpu_torch/kernels/csrc/g2_features.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:1122 g2_features_full_pallas",
-        err, err <= TOL_ORIENT and basis_rel <= TOL_REL and agree >= MIN_KEEP_AGREE and off_ok,
-        sum(cuda_ms(lambda lv=lv: cf.g2_features_full(lv, xt, yt, threshold=1.0)) for lv in levels),
-        sum(cuda_ms(lambda lv=lv: cf.g2_features_full_plain(lv, xt, yt, threshold=1.0))
-            for lv in levels),
-        None, bound,
-        basis_rel_err=basis_rel, p3_keep_agreement=agree, offsets_ok=off_ok,
+        err, bits and agree == 1.0,
+        timings([feats], ("g2_features_kernel",), 1,
+                [lambda lv=lv: cf.g2_features_full_plain(lv, xt, yt, threshold=1.0) for lv in levels]),
+        bound, bit_equal=bits, p3_keep_agreement=agree, levels_per_launch=len(levels),
     )
 
-    # D: descriptor sampling at each level's 256 detected keypoints; the
-    # library call is F.grid_sample on the same (clipped) coordinates
-    err, scale, lib_err, calls, grids, bound = 0.0, 0.0, 0.0, [], [], Bound()
+    # D: descriptor sampling at the 256 detected keypoints of each level, all
+    # levels in one launch; the library call is F.grid_sample per level on
+    # the same (clipped) coordinates
+    lib_err, ys_l, xs_l, grids, bound = 0.0, [], [], [], Bound()
+    bases = [o[5] for o in per_level_out]
     for p3, dy, dx, ct, st, basis in per_level_out:
         kp = detect_keypoints_packed(p3, dy, dx, ct, st, max_keypoints=256)
         ys, xs, _, _ = _rotated_grid_coords(kp, 4, 3.0)
-        ys, xs = ys.contiguous(), xs.contiguous()
-        k = cd.sample_patches(basis, ys, xs)
-        p = cd.sample_patches_plain(basis, ys, xs)
-        err = max(err, (k - p).abs().max().item())
-        scale = max(scale, p.abs().max().item())
         h, w = basis.shape[-2:]
         grid = torch.stack([2 * xs.clamp(0, w - 1) / max(w - 1, 1) - 1,
                             2 * ys.clamp(0, h - 1) / max(h - 1, 1) - 1], -1)
         lib = F.grid_sample(basis, grid, mode="bilinear", padding_mode="border", align_corners=True)
-        lib_err = max(lib_err, (lib.permute(0, 2, 3, 1) - p).abs().max().item())
-        calls.append((basis, ys, xs))
+        lib_err = max(lib_err, (lib.permute(0, 2, 3, 1) - cd.sample_patches_plain(basis, ys, xs))
+                      .abs().max().item())
+        ys_l.append(ys)
+        xs_l.append(xs)
         grids.append((basis, grid))
         n_s, c = ys.numel(), basis.shape[1]
         # coordinates in, 4 corner texels of C channels in, C samples out;
         # ~10 flops of coordinates per sample and 8 of lerps per channel
         bound.add(n_s * (8 + 16 * c + 4 * c), n_s * (10 + 8 * c))
+    counts = [y.shape[1] for y in ys_l]
+    ys, xs = torch.cat(ys_l, 1).contiguous(), torch.cat(xs_l, 1).contiguous()
+    err, bits = diff([cd.sample_patches_levels(bases, ys, xs, counts)],
+                     [cd.sample_patches_levels_plain(bases, ys, xs, counts)])
     record(
         "desc_sample", "cvsteer_tpu_torch/kernels/csrc/desc_sample.cu",
         "cvsteer_tpu/ops/pallas_desc.py:211 bilinear_sample_patch_dma (kernel :148 sample_patches_pallas)",
-        err, err <= TOL_REL * scale,
-        sum(cuda_ms(lambda c=c: cd.sample_patches(*c)) for c in calls),
-        sum(cuda_ms(lambda c=c: cd.sample_patches_plain(*c)) for c in calls),
-        sum(cuda_ms(lambda g=g: F.grid_sample(g[0], g[1], mode="bilinear", padding_mode="border",
-                                              align_corners=True)) for g in grids),
-        bound, keypoints=[256] * len(calls), library_abs_err=lib_err,
+        err, bits,
+        timings([lambda: cd.sample_patches_levels(bases, ys, xs, counts)], ("desc_sample_kernel",), 1,
+                [lambda: cd.sample_patches_levels_plain(bases, ys, xs, counts)],
+                [lambda g=g: F.grid_sample(g[0], g[1], mode="bilinear", padding_mode="border",
+                                           align_corners=True) for g in grids]),
+        bound, bit_equal=bits, keypoints=counts, library_abs_err=lib_err,
     )
 
     # E / E4: the fused maps at the CLI's batch (16x512x512, bf16 maps, the
@@ -390,17 +499,38 @@ def check_kernels(frame, frames512, fish):
         bound.add(px * (4 + 3 * 2), bank_flops(px, bk.xtaps, bk.ytaps) + px * maps_tail_flops(order))
         record(
             name, "cvsteer_tpu_torch/kernels/csrc/g2_maps.cu", repl, err, rel <= TOL_REL,
-            cuda_ms(lambda: fn(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)),
-            cuda_ms(lambda: plain(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)),
-            None, bound, max_rel_err=rel, bit_equal=bits, timed_shape=list(batch.shape),
-            ms_fp32_maps=cuda_ms(lambda: fn(batch, bk.xtaps, bk.ytaps)),
+            timings([lambda: fn(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)], ("maps_kernel",), 1,
+                    [lambda: plain(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)]),
+            bound, max_rel_err=rel, bit_equal=bits, timed_shape=list(batch.shape),
+            device_ms_fp32_maps=device_ms(lambda: fn(batch, bk.xtaps, bk.ytaps), ("maps_kernel",), 1)[0],
             shapes=[list(x.shape) for x in inputs],
         )
+
+    # E′: the fused feature maps (score, ct, st) at the CLI's batch (the
+    # timed shape) and the VO frame; its bound: the image in, three fp32
+    # maps out, the least bank work and the 74 flops of the feature tail
+    # (counted from common.cuh's g2_feature_tail; selects not counted)
+    plain_fm = lambda x: cf.g2_feature_maps_plain(cf.filter_bank_plain(x, xt, yt))  # noqa: E731
+    err, bits = 0.0, True
+    for x in inputs[:2]:
+        e, same = diff(cf.g2_feature_maps(x, xt, yt), plain_fm(x))
+        err, bits = max(err, e), bits and same
+    batch = inputs[0]
+    bound = Bound()
+    bound.add(batch.numel() * (4 + 3 * 4), bank_flops(batch.numel(), xt, yt) + 74 * batch.numel())
+    record(
+        "g2_feature_maps", "cvsteer_tpu_torch/kernels/csrc/g2_maps.cu",
+        "cvsteer_tpu/ops/pallas_frontend.py:881 g2_feature_maps_pallas (g2_maps_tiled_pallas :946 mode \"features\", call :1034)",
+        err, bits,
+        timings([lambda: cf.g2_feature_maps(batch, xt, yt)], ("maps_kernel",), 1, [lambda: plain_fm(batch)]),
+        bound, bit_equal=bits, timed_shape=list(batch.shape), shapes=[list(x.shape) for x in inputs[:2]],
+        device_ms_480x640=device_ms(lambda: cf.g2_feature_maps(img, xt, yt), ("maps_kernel",), 1)[0],
+    )
 
     # F: the bank's adjoint with both banks at every shape; timed at the
     # gradient phase's 1x480x640 (one G2 and one G4 call)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err, rel, ag_rel, bound, timed, timed_plain = 0.0, 0.0, 0.0, Bound(), 0.0, 0.0
+    err, rel, ag_rel, bound, timed, timed_plain = 0.0, 0.0, 0.0, Bound(), [], []
     for bk in (bank, g4):
         K, T = bk.xtaps.shape
         for x in inputs:
@@ -415,14 +545,15 @@ def check_kernels(frame, frames512, fish):
             (ref,) = torch.autograd.grad(cf.filter_bank_plain(xr, bk.xtaps, bk.ytaps), xr, g)
             ag_rel = max(ag_rel, (k - ref).abs().max().item() / s)
             if x is img:
-                timed += cuda_ms(lambda g=g, bk=bk: cf.filter_bank_adjoint(g, bk.xtaps, bk.ytaps))
-                timed_plain += cuda_ms(lambda g=g, bk=bk: cf.filter_bank_adjoint_plain(g, bk.xtaps, bk.ytaps))
+                timed.append(lambda g=g, bk=bk: cf.filter_bank_adjoint(g, bk.xtaps, bk.ytaps))
+                timed_plain.append(lambda g=g, bk=bk: cf.filter_bank_adjoint_plain(g, bk.xtaps, bk.ytaps))
                 h, w = x.shape[-2:]
                 bound.add(h * w * 4 * (K + 1), bank_flops((h + T - 1) * (w + T - 1), bk.xtaps, bk.ytaps))
     record(
         "filter_bank_adj", "cvsteer_tpu_torch/kernels/csrc/filter_bank_adj.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:1224-1252 filter_bank_pallas_diff (custom VJP backward)",
-        err, rel <= TOL_REL and ag_rel <= TOL_GRAD, timed, timed_plain, None, bound,
+        err, rel <= TOL_REL and ag_rel <= TOL_GRAD,
+        timings(timed, ("adj_corr_kernel", "adj_fold_kernel"), 2, timed_plain), bound,
         max_rel_err=rel, autograd_rel_err=ag_rel, timed_shape=list(img.shape),
     )
     return records, ok
@@ -499,6 +630,62 @@ def run_vo(n_frames: int, seed: int):
         state=state, launches=launches, ate=ate, gate=gate, wall_s=wall,
         vo_s=timer.total_s["vo"], means_ms=timer.means_ms(), frames=frames,
         finite=bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
+    )
+
+
+def profile_vo(seed: int) -> dict:
+    """The VO's device picture: a second run of the default VO, warmed up
+    over VO_PROFILE_WARM frames, then VO_PROFILE_FRAMES frames inside
+    torch.profiler. Returns device
+    kernels and copies/memsets per frame, the device busy share of the
+    window's host-clock time, the mean ``features`` span and the device ms
+    per frame of kernels B, C and D."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.vo import VOConfig, init_vo, process_image
+    from cvsteer_tpu_torch.utils.metrics import StepTimer
+
+    cfg = VOConfig()
+    K = cfg.intrinsics
+    n = VO_PROFILE_WARM + VO_PROFILE_FRAMES
+    seq = PlanesSequence(n_frames=n, image_hw=(480, 640), fx=K.fx, fy=K.fy, cx=K.cx, cy=K.cy,
+                         seed=seed)
+    frames = [seq.render(k) for k in range(n)]
+    state = init_vo(cfg, device="cuda")
+    for k in range(VO_PROFILE_WARM):
+        state = process_image(state, frames[k])
+    state.timer = timer = StepTimer(sync=torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(VO_PROFILE_WARM, n):
+            state = process_image(state, frames[k])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    attr = device_time_attr()
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:  # the union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    names = {"pyr_down": "pyr_down_kernel", "g2_features_full": "g2_features_kernel",
+             "desc_sample": "desc_sample_kernel"}
+    per_kernel = {k: sum(getattr(e, attr) for e in dev if _named(e.name, v)) / 1e3 / VO_PROFILE_FRAMES
+                  for k, v in names.items()}
+    return dict(
+        kernels_per_frame=(len(dev) - len(copies)) / VO_PROFILE_FRAMES,
+        copies_per_frame=len(copies) / VO_PROFILE_FRAMES,
+        busy_share=busy_us / (wall_s * 1e6),
+        wall_ms_per_frame=1e3 * wall_s / VO_PROFILE_FRAMES,
+        features_ms=timer.means_ms().get("features", float("nan")),
+        frontend_kernel_ms=per_kernel,
     )
 
 
@@ -707,8 +894,18 @@ def main(argv=None) -> int:
             "VO: one pose per frame": res["frames"] == list(range(n)),
             "VO: finite poses": res["finite"],
             "VO: ATE within bound": res["ate"] < gate["bound"],
-            "VO: kernels A-D launched": all(res["launches"][k] > 0 for k in PATH_KERNELS["vo"]),
+            "VO: kernels B-D launched": all(res["launches"][k] > 0 for k in PATH_KERNELS["vo"]),
+            "VO: launches per frame": all(res["launches"][k] == v * n
+                                          for k, v in VO_LAUNCHES_PER_FRAME.items()),
         }
+        prof = profile_vo(args.seed)
+        print(f"VO profile, frames {VO_PROFILE_WARM}-{VO_PROFILE_WARM + VO_PROFILE_FRAMES - 1} "
+              f"of a second run (torch.profiler): {prof['kernels_per_frame']:.1f} device kernels, "
+              f"{prof['copies_per_frame']:.1f} copies/memsets per frame; device busy "
+              f"{100 * prof['busy_share']:.2f} % of {prof['wall_ms_per_frame']:.2f} ms per frame; "
+              f"features span {prof['features_ms']:.3f} ms; kernels B-D device ms per frame "
+              f"{prof['frontend_kernel_ms']}")
+        checks["VO profile: device time seen"] = prof["busy_share"] > 0
         launches = {"vo": res["launches"]}
 
         # 6. CLI
@@ -728,7 +925,9 @@ def main(argv=None) -> int:
         return _fail("path checks failed")
 
     for r in records:
-        r["launches"] = launches[LAUNCHES_FROM[r["name"]]][r["name"]]
+        phase = LAUNCHES_FROM[r["name"]]
+        r["launches"] = launches[phase][r["name"]] if phase else 0
+        r["launches_from"] = phase
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,

@@ -5,7 +5,9 @@ Recipe: a G x G grid of sample offsets (spacing in pixels) rotated by the
 keypoint's dominant orientation theta; at each sample the 7 basis
 responses are bilinearly interpolated (kernel D on the card) and steered
 to theta; the (g2, h2) pairs of all samples form a vector [2 G^2] that is
-L2-normalized.
+L2-normalized. Every step but the sampling is elementwise per keypoint,
+so the keypoints of all pyramid levels go through it together
+(:func:`phase_descriptors_levels`, one kernel D launch per frame).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from cvsteer_tpu_torch.features.keypoints import Keypoints
 from cvsteer_tpu_torch.filters.g2 import G2A, G2B, G2C, H2A, H2B, H2C, H2D
-from cvsteer_tpu_torch.ops.cuda_desc import sample_patches
+from cvsteer_tpu_torch.ops.cuda_desc import sample_patches, sample_patches_levels
 
 
 def _grid_offsets(grid: int, spacing: float) -> np.ndarray:
@@ -98,6 +100,27 @@ def phase_descriptors_batch(
     """``basis [B, 7, H, W]``, keypoint fields ``[B, N, ...]`` ->
     descriptors ``[B, N, grid*grid*2]``."""
     samples, ct, st = _rotated_grid_samples_batch(basis, keypoints, grid, spacing)
+    return _steer_g2_normalize(
+        samples, ct, st, keypoints.valid, pi_invariant=pi_invariant
+    )
+
+
+def phase_descriptors_levels(
+    bases,
+    keypoints: Keypoints,
+    counts,
+    *,
+    grid: int = 4,
+    spacing: float = 3.0,
+    pi_invariant: bool = False,
+) -> torch.Tensor:
+    """Descriptors of several pyramid levels' keypoints at once: ``bases``
+    one ``[B, 7, H_l, W_l]`` per level, keypoint fields ``[B, N, ...]``
+    holding ``counts[l]`` keypoints of level l after those of the levels
+    before it (level coordinates) -> ``[B, N, grid*grid*2]``, the same
+    values as :func:`phase_descriptors_batch` level by level."""
+    ys, xs, ct, st = _rotated_grid_coords(keypoints, grid, spacing)
+    samples = sample_patches_levels(bases, ys.contiguous(), xs.contiguous(), counts)
     return _steer_g2_normalize(
         samples, ct, st, keypoints.valid, pi_invariant=pi_invariant
     )

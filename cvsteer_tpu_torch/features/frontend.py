@@ -2,23 +2,26 @@
 phase descriptors (twin of cvsteer_tpu.features.frontend).
 
 The structure is the reference's fused TPU path (_extract_features_tpu),
-on every device: per pyramid level one g2_features_full call (kernels A + C
-on the card) produces the basis and the packed selection maps, top-k runs
-on the 3x3-cell table (detect_keypoints_packed), and descriptors sample
-the basis (kernel D on the card). The pyramid is kernel B. On a CPU tensor
-the same structure runs with the kernels' plain versions.
+on every device: one g2_features_levels call (one kernel C launch on the
+card) produces every level's basis and packed selection maps, top-k runs
+per level on the 3x3-cell table (detect_keypoints_packed), and the
+descriptors of all levels' keypoints are computed together, sampling each
+level's basis (one kernel D launch). The pyramid is kernel B. On a CPU
+tensor the same structure runs with the kernels' plain versions.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
-from cvsteer_tpu_torch.features.descriptors import phase_descriptors_batch
-from cvsteer_tpu_torch.features.keypoints import detect_keypoints_packed
+from cvsteer_tpu_torch.features.descriptors import phase_descriptors_levels
+from cvsteer_tpu_torch.features.keypoints import Keypoints, detect_keypoints_packed
 from cvsteer_tpu_torch.filters import g2 as fg2
-from cvsteer_tpu_torch.ops.cuda_frontend import g2_features_full
+from cvsteer_tpu_torch.ops.cuda_frontend import g2_features_levels
 from cvsteer_tpu_torch.ops.pyramid import gaussian_pyramid
 
 
@@ -96,6 +99,16 @@ def _check_config(cfg: FrontendConfig) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _level_tables(counts: Tuple[int, ...], device: str):
+    """(scale [N] float32, level [N] int32): each keypoint's level-0 scale
+    2^l and its level, for ``counts[l]`` keypoints of each level l. Read
+    only; cached per layout and device."""
+    level = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    scale = np.exp2(level).astype(np.float32)
+    return torch.from_numpy(scale).to(device), torch.from_numpy(level).to(device)
+
+
 def extract_features(
     images: torch.Tensor,
     bank=None,
@@ -109,30 +122,30 @@ def extract_features(
     single = images.dim() == 2
     imgs = (images[None] if single else images).to(torch.float32).contiguous()
     levels = gaussian_pyramid(imgs, cfg.levels)
-    parts = []
-    for lvl, lv_imgs in enumerate(levels):
-        p3, dym, dxm, ctm, stm, basis = g2_features_full(
-            lv_imgs, bank.xtaps, bank.ytaps,
-            threshold=cfg.threshold, nms_radius=cfg.nms_radius,
-        )
-        kp = detect_keypoints_packed(
-            p3, dym, dxm, ctm, stm, max_keypoints=cfg.level_capacity(lvl)
-        )
-        kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
-        desc = phase_descriptors_batch(
-            basis, kp_d,
-            grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
-            pi_invariant=cfg.desc_pi_invariant,
-        )
-        parts.append(Features(
-            yx=kp.yx * float(2**lvl),
-            score=kp.score,
-            theta=kp.theta,
-            level=torch.full(kp.score.shape, lvl, dtype=torch.int32, device=imgs.device),
-            desc=desc,
-            valid=kp.valid,
-        ))
-    feats = Features(*(torch.cat(xs, dim=1) for xs in zip(*parts)))
+    maps = g2_features_levels(
+        levels, bank.xtaps, bank.ytaps, threshold=cfg.threshold, nms_radius=cfg.nms_radius
+    )
+    kps = [
+        detect_keypoints_packed(p3, dym, dxm, ctm, stm, max_keypoints=cfg.level_capacity(lvl))
+        for lvl, (p3, dym, dxm, ctm, stm, _) in enumerate(maps)
+    ]
+    counts = tuple(k.capacity for k in kps)
+    kp = Keypoints(*(torch.cat(f, dim=1) for f in zip(*kps)))  # level coordinates
+    kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
+    desc = phase_descriptors_levels(
+        [m[5] for m in maps], kp_d, counts,
+        grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
+        pi_invariant=cfg.desc_pi_invariant,
+    )
+    scale, level = _level_tables(counts, str(imgs.device))
+    feats = Features(
+        yx=kp.yx * scale[:, None],
+        score=kp.score,
+        theta=kp.theta,
+        level=level.expand(kp.score.shape).clone(),
+        desc=desc,
+        valid=kp.valid,
+    )
     if single:
         feats = Features(*(x[0] for x in feats))
     return feats

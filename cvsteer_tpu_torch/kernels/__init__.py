@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "filter_bank", "pyr_down", "g2_features_full", "desc_sample",
-    "g2_maps", "g4_maps", "filter_bank_adj",
+    "g2_maps", "g4_maps", "filter_bank_adj", "g2_feature_maps",
 )
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -136,17 +136,19 @@ _SIGNATURES = {
     "cvs_filter_bank": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # in, out, n, h, w, stream
     "cvs_pyr_down": (_P, _P, _I, _I, _I, _P),
-    # basis, score, ct, st, n, h, w, stream
-    "cvs_g2_maps": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # score, p3, dy, dx, n, h, w, threshold, nms_radius, stream
-    "cvs_g2_select": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # basis, ys, xs, out, b, c, h, w, k, s, stream
-    "cvs_desc_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ptrs [L, 7] int64 (host), hw [L, 2] int32 (host), n_levels, n, t,
+    # xtaps(host), ytaps(host), threshold, nms_radius, stream
+    "cvs_g2_features": (_P, _P, _I, _I, _I, _P, _P, _F, _I, _P),
+    # bases [L] int64 (host), hw [L, 2] int32 (host), counts [L] int32
+    # (host), n_levels, ys, xs, out, b, c, k, s, stream
+    "cvs_desc_sample": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     # in, edges, dark, bright, n, h, w, t, xtaps(host), ytaps(host), bf16, stream
     "cvs_maps_g2": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
     # ... as cvs_maps_g2, with the G4 product list before bf16: (i, j, slot)
     # [n_terms, 3] int32 (host), weights [n_terms] float32 (host), n_terms
     "cvs_maps_g4": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P),
+    # in, score, ct, st, n, h, w, t, xtaps(host), ytaps(host), stream
+    "cvs_features_g2": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # grad, scratch, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
     "cvs_filter_bank_adj": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }

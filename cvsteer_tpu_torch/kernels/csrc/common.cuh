@@ -102,3 +102,83 @@ __device__ __forceinline__ float col_at(const float (&rows)[TH][RW], const SepTa
     for (int t = 1; t < T; ++t) a = a + rows[y + (kFlip ? T - 1 - t : t)][c] * taps.y[k][t];
     return a;
 }
+
+// ---------------------------------------------------------------------------
+// Register-blocked passes (kernel C)
+//
+// The same sum order as row_pass / col_at (taps ascending from t = 0, the
+// first product not added to zero), but a thread computes a strip of P
+// outputs from a window of P + T - 1 staged values that it reads from shared
+// memory once into registers: each staged value is read once per strip and
+// filter instead of once per tap. T is a compile-time constant so the
+// window stays in registers.
+// ---------------------------------------------------------------------------
+
+// P consecutive outputs of the correlation with taps[0..T) from the window
+// win[0 .. P + T - 1): out[p] = sum_t taps[t] win[p + t].
+template <int T, int P>
+__device__ __forceinline__ void strip_pass(const float (&win)[P + T - 1], const float* taps,
+                                           float (&out)[P]) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        float a = win[p] * taps[0];
+#pragma unroll
+        for (int t = 1; t < T; ++t) a = a + win[p + t] * taps[t];
+        out[p] = a;
+    }
+}
+
+// Stage rows [y_org, y_org + th) x columns [x_org, x_org + tw) of one plane
+// into a shared buffer of row stride ld, REFLECT_101 outside the plane: one
+// warp per row, its lanes along the row, so the row's reflected index is
+// computed once and the loads are coalesced; no division per element.
+__device__ __forceinline__ void stage_reflect(float* __restrict__ dst, int ld,
+                                              const float* __restrict__ src, int h, int w,
+                                              int y_org, int x_org, int th, int tw) {
+    const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    for (int ty = threadIdx.x >> 5; ty < th; ty += warps) {
+        const int gy = y_org + ty;
+        const float* row = src + (size_t)((unsigned)gy < (unsigned)h ? gy : reflect101(gy, h)) * w;
+        float* out = dst + ty * ld;
+        for (int tx = lane; tx < tw; tx += 32) {
+            const int gx = x_org + tx;
+            out[tx] = row[(unsigned)gx < (unsigned)w ? gx : reflect101(gx, w)];
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The G2 feature tail (kernels C and E′)
+//
+// From the 7 G2/H2 basis responses of one pixel: the corner score
+// c1 - |(c2, c3)| and the half-angle orientation (ct, st) without any
+// transcendental. The expressions and their order are those of the plain
+// version (ops/cuda_frontend.py::g2_feature_maps_plain, the reference's
+// _g2_feature_maps_reference_xla), one rounding per operation.
+// ---------------------------------------------------------------------------
+
+struct G2Features {
+    float score, ct, st;
+};
+
+__device__ __forceinline__ G2Features g2_feature_tail(const float (&b)[7]) {
+    const float g2a = b[0], g2b = b[1], g2c = b[2];
+    const float h2a = b[3], h2b = b[4], h2c = b[5], h2d = b[6];
+    const float c1 = 0.5f * (g2b * g2b) + 0.25f * (g2a * g2c)
+                     + 0.375f * (g2a * g2a + g2c * g2c)
+                     + 0.3125f * (h2a * h2a + h2d * h2d)
+                     + 0.5625f * (h2b * h2b + h2c * h2c)
+                     + 0.375f * (h2a * h2c + h2b * h2d);
+    const float c2 = 0.5f * (g2a * g2a - g2c * g2c)
+                     + 0.46875f * (h2a * h2a - h2d * h2d)
+                     + 0.28125f * (h2b * h2b - h2c * h2c)
+                     + 0.1875f * (h2a * h2c - h2b * h2d);
+    const float c3 = -(g2a * g2b) - g2b * g2c - 0.9375f * (h2c * h2d + h2a * h2b)
+                     - 1.6875f * h2b * h2c - 0.1875f * h2a * h2d;
+    const float rho = sqrtf(c2 * c2 + c3 * c3);
+    const float inv_rho = rho > 0.0f ? 1.0f / rho : 0.0f;
+    const float cos2t = rho > 0.0f ? c2 * inv_rho : 1.0f;
+    const float ct = sqrtf(fmaxf(0.5f * (1.0f + cos2t), 0.0f));
+    const float st_mag = sqrtf(fmaxf(0.5f * (1.0f - cos2t), 0.0f));
+    return {c1 - rho, ct, c3 >= 0.0f ? st_mag : -st_mag};
+}

@@ -1,11 +1,13 @@
 // Kernel E: fused output maps, image [N, H, W] -> (edges, lines_dark,
 // lines_bright) [N, H, W] in float32 or bfloat16, for the G2/H2 pair
-// (K = 7 filters) and the G4/H4 pair (K = 11).
+// (K = 7 filters) and the G4/H4 pair (K = 11); and E′, the same bank with
+// the G2 feature tail: image -> (score, ct, st) [N, H, W] in float32.
 //
 // Replaces: cvsteer_tpu/ops/pallas_frontend.py::g2_maps_tiled_pallas
-// (_g2_maps_tiled_kernel), mode "maps" (g2_maps_pallas) and mode "g4maps"
-// (g4_maps_pallas). Plain version: ops/cuda_frontend.py::g2_maps_plain /
-// g4_maps_plain.
+// (_g2_maps_tiled_kernel), mode "maps" (g2_maps_pallas), mode "g4maps"
+// (g4_maps_pallas) and mode "features" (g2_feature_maps_pallas). Plain
+// version: ops/cuda_frontend.py::g2_maps_plain / g4_maps_plain, and
+// g2_feature_maps_plain of filter_bank_plain for E′.
 //
 // Contract: the separable bank of kernel A (cross-correlation, REFLECT_101
 // that keeps reflecting, so images narrower than the taps stay defined;
@@ -15,7 +17,8 @@
 // gives (u, v) = (cos 2t, sin 2t) with u = 1, v = 0 where c2 = c3 = 0; the
 // steered even response g and the square of the odd one h^2 are
 // polynomials in u, v; edges = h^2 / |(g, h)|, dark = g^2 / |(g, h)| where
-// g > 0, bright the same where g < 0.
+// g > 0, bright the same where g < 0. E′'s tail is common.cuh's
+// g2_feature_tail, kernel C's.
 //
 // What bounds it on the card: arithmetic about as much as memory. Per
 // pixel it reads 4 bytes and writes 6 (bf16) or 12 (fp32); the least work
@@ -156,7 +159,9 @@ __device__ __forceinline__ Maps g4_tail(const float (&b)[kG4K], const G4Weights&
     return maps_out(g4v, g4v * g4v, h4sq);
 }
 
-template <int K, typename OutT>
+// kFeatures: E′, whose three outputs are (score, ct, st) instead of
+// (edges, dark, bright).
+template <int K, typename OutT, bool kFeatures = false>
 __global__ void __launch_bounds__(kThreads)
 maps_kernel(const float* __restrict__ in, OutT* __restrict__ edges, OutT* __restrict__ dark,
             OutT* __restrict__ bright, int h, int w, int T, const SepTaps taps,
@@ -196,21 +201,28 @@ maps_kernel(const float* __restrict__ in, OutT* __restrict__ edges, OutT* __rest
             float b[K];
 #pragma unroll
             for (int k = 0; k < K; ++k) b[k] = acc[k][p];
-            Maps m;
-            if constexpr (K == kG4K) {
-                m = g4_tail(b, q);
-            } else {
-                m = g2_tail(b);
-            }
             const size_t o = base + (size_t)gy * w;
-            store(edges + o, m.edges);
-            store(dark + o, m.dark);
-            store(bright + o, m.bright);
+            if constexpr (kFeatures) {
+                const G2Features f = g2_feature_tail(b);
+                store(edges + o, f.score);
+                store(dark + o, f.ct);
+                store(bright + o, f.st);
+            } else {
+                Maps m;
+                if constexpr (K == kG4K) {
+                    m = g4_tail(b, q);
+                } else {
+                    m = g2_tail(b);
+                }
+                store(edges + o, m.edges);
+                store(dark + o, m.dark);
+                store(bright + o, m.bright);
+            }
         }
     }
 }
 
-template <int K>
+template <int K, bool kFeatures = false>
 int launch_maps(const float* in, void* e, void* d, void* b, int n, int h, int w, int t,
                 const float* xtaps, const float* ytaps, const G4Weights& q, int bf16,
                 void* stream) {
@@ -220,7 +232,10 @@ int launch_maps(const float* in, void* e, void* d, void* b, int n, int h, int w,
     const SepTaps taps = pack_taps(xtaps, ytaps, K, t);
     dim3 grid(ceil_div(w, kTileW), ceil_div(h, kTileH), n);
     cudaStream_t s = (cudaStream_t)stream;
-    if (bf16) {
+    if constexpr (kFeatures) {
+        maps_kernel<K, float, true><<<grid, kThreads, 0, s>>>(in, (float*)e, (float*)d, (float*)b,
+                                                              h, w, t, taps, q);
+    } else if (bf16) {
         using T = __nv_bfloat16;
         maps_kernel<K, T><<<grid, kThreads, 0, s>>>(in, (T*)e, (T*)d, (T*)b, h, w, t, taps, q);
     } else {
@@ -237,6 +252,14 @@ CVS_EXPORT int cvs_maps_g2(const float* in, void* edges, void* dark, void* brigh
                            int bf16, void* stream) {
     return launch_maps<kG2K>(in, edges, dark, bright, n, h, w, t, xtaps, ytaps, G4Weights{},
                              bf16, stream);
+}
+
+// E′: score, ct and st in float32.
+CVS_EXPORT int cvs_features_g2(const float* in, float* score, float* ct, float* st, int n, int h,
+                               int w, int t, const float* xtaps, const float* ytaps,
+                               void* stream) {
+    return launch_maps<kG2K, true>(in, score, ct, st, n, h, w, t, xtaps, ytaps, G4Weights{}, 0,
+                                   stream);
 }
 
 // terms: [n_terms, 3] int32 (i, j, slot) and [n_terms] float32 weights, the

@@ -5,20 +5,27 @@ the basis ``[B, C, H, W]`` at each keypoint's rotated sample grid
 ``ys/xs [B, K, S]`` -> ``[B, K, S, C]`` float32, with coordinates clipped
 to the image as the TPU wrapper clips them. Kernel D
 (``kernels/csrc/desc_sample.cu``) reads fp32 corners, so it is at least as
-accurate as the reference's bf16 sampling class.
+accurate as the reference's bf16 sampling class. :func:`sample_patches_levels`
+samples the keypoints of every pyramid level in one launch;
+:func:`sample_patches` is its one-level case.
 
-The wrapper takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises, and adds one to the
+The wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises, and adds one to the
 ``desc_sample`` launch count where it launches.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
 from cvsteer_tpu_torch import kernels
-from cvsteer_tpu_torch.ops.cuda_frontend import _on_cpu, _require
+from cvsteer_tpu_torch.ops.cuda_frontend import _MAX_LEVELS, _host, _on_cpu, _require
 from cvsteer_tpu_torch.ops.interp import bilinear_sample_channels_last
+
+_MAX_SAMPLES = 64  # kernel D: samples per keypoint
 
 
 def sample_patches_plain(
@@ -31,33 +38,66 @@ def sample_patches_plain(
     ])
 
 
+def sample_patches_levels_plain(
+    bases: Sequence[torch.Tensor], ys: torch.Tensor, xs: torch.Tensor, counts: Sequence[int]
+) -> torch.Tensor:
+    """A loop of :func:`sample_patches_plain` over the levels' keypoints."""
+    bounds = np.cumsum([0, *counts])
+    return torch.cat([
+        sample_patches_plain(b, ys[:, k0:k1], xs[:, k0:k1])
+        for b, k0, k1 in zip(bases, bounds[:-1], bounds[1:])
+    ], dim=1)
+
+
+def sample_patches_levels(
+    bases: Sequence[torch.Tensor], ys: torch.Tensor, xs: torch.Tensor, counts: Sequence[int]
+) -> torch.Tensor:
+    """Samples of several levels' keypoints in one call.
+
+    ``bases``: each level's basis ``[B, C, H_l, W_l]``; ``ys/xs [B, K, S]``
+    hold the keypoints of level 0, then those of level 1, ..., ``counts[l]``
+    of level l (summing to K) -> ``[B, K, S, C]``, each level's keypoints
+    sampled from its basis. On the card: one launch of kernel D."""
+    bases, counts = list(bases), [int(c) for c in counts]
+    if len(bases) != len(counts) or sum(counts) != ys.shape[-2]:
+        raise ValueError(f"sample_patches: counts {counts} for {len(bases)} levels, "
+                         f"K = {ys.shape[-2]}")
+    if all(_on_cpu(t) for t in (*bases, ys, xs)):
+        return sample_patches_levels_plain(bases, ys, xs, counts)
+    for t, name in [*((b, "basis") for b in bases), (ys, "ys"), (xs, "xs")]:
+        _require(t, name, 3)
+        if t.device != ys.device:
+            raise ValueError(f"{name} on {t.device}, ys on {ys.device}")
+    if ys.dim() != 3 or ys.shape != xs.shape or not 1 <= len(bases) <= _MAX_LEVELS:
+        raise ValueError(f"sample_patches: ys {tuple(ys.shape)}, xs {tuple(xs.shape)}, "
+                         f"{len(bases)} levels")
+    b, k, s = ys.shape
+    c = bases[0].shape[1]
+    if s > _MAX_SAMPLES or any(t.dim() != 4 or t.shape[:2] != (b, c) for t in bases):
+        raise ValueError(f"sample_patches: bases {[tuple(t.shape) for t in bases]}, "
+                         f"ys {tuple(ys.shape)}")
+    out = torch.empty((b, k, s, c), dtype=torch.float32, device=ys.device)
+    if b * k * c == 0:
+        return out
+    ptrs = np.array([t.data_ptr() for t in bases], np.int64)
+    hw = np.array([t.shape[-2:] for t in bases], np.int32)
+    cnt = np.array(counts, np.int32)
+    lib = kernels.library()
+    kernels.count_launch("desc_sample")
+    err = lib.cvs_desc_sample(
+        _host(ptrs), _host(hw), _host(cnt), len(bases), ys.data_ptr(), xs.data_ptr(),
+        out.data_ptr(), b, c, k, s, kernels.stream_handle(ys.device),
+    )
+    kernels.check(err, "desc_sample")
+    return out
+
+
 def sample_patches(
     basis: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
 ) -> torch.Tensor:
     """``basis [B, C, H, W]``, ``ys/xs [B, K, S]`` -> ``[B, K, S, C]``."""
     if _on_cpu(basis):
         return sample_patches_plain(basis, ys, xs)
-    for t, name in ((basis, "basis"), (ys, "ys"), (xs, "xs")):
-        _require(t, name, 3)
-        if t.device != basis.device:
-            raise ValueError(f"{name} on {t.device}, basis on {basis.device}")
-    if basis.dim() != 4 or ys.dim() != 3 or ys.shape != xs.shape:
-        raise ValueError(
-            f"sample_patches: basis {tuple(basis.shape)}, ys {tuple(ys.shape)}, "
-            f"xs {tuple(xs.shape)}"
-        )
-    b, c, h, w = basis.shape
-    _, k, s = ys.shape
-    if ys.shape[0] != b or s * c > 256:
-        raise ValueError(f"sample_patches: unsupported shapes {tuple(ys.shape)}, C={c}")
-    out = torch.empty((b, k, s, c), dtype=torch.float32, device=basis.device)
-    if b * k == 0:
-        return out
-    lib = kernels.library()
-    kernels.count_launch("desc_sample")
-    err = lib.cvs_desc_sample(
-        basis.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
-        b, c, h, w, k, s, kernels.stream_handle(basis.device),
-    )
-    kernels.check(err, "desc_sample")
-    return out
+    if ys.dim() != 3:
+        raise ValueError(f"sample_patches: ys {tuple(ys.shape)}, expected [B, K, S]")
+    return sample_patches_levels([basis], ys, xs, [ys.shape[1]])

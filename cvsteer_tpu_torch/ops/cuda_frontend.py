@@ -5,9 +5,12 @@ The port's counterpart of cvsteer_tpu.ops.pallas_frontend:
 - :func:`filter_bank` (kernel A, ``kernels/csrc/filter_bank.cu``) — the
   separable bank ``[..., H, W] -> [..., K, H, W]``;
 - :func:`pyr_down` (kernel B, ``kernels/csrc/pyr_down.cu``) — cv2.pyrDown;
-- :func:`g2_features_full` (kernel C, ``kernels/csrc/g2_features.cu``, on
-  top of kernel A) — the per-level detector maps
-  ``(p3, dy, dx, ct, st, basis)``;
+- :func:`g2_features_levels` / :func:`g2_features_full` (kernel C,
+  ``kernels/csrc/g2_features.cu``) — the detector maps
+  ``(p3, dy, dx, ct, st, basis)`` of every level of a pyramid in one launch,
+  or of one image;
+- :func:`g2_feature_maps` (kernel E′, the feature tail of kernel E's
+  template) — image -> ``(score, ct, st)``;
 - :func:`g2_maps` / :func:`g4_maps` (kernel E, ``kernels/csrc/g2_maps.cu``,
   one fused kernel per filter order) — image -> the three output maps
   ``(edges, lines_dark, lines_bright)``, the basis never leaving registers;
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +52,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}: cpu or cuda only")
     return False
+
+
+def _host(a: np.ndarray) -> ctypes.c_void_p:
+    """A host array's address for a C entry point (the array must outlive
+    the call)."""
+    return a.ctypes.data_as(ctypes.c_void_p)
 
 
 def _require(t: torch.Tensor, name: str, ndim_min: int) -> None:
@@ -87,7 +96,7 @@ def filter_bank(image: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
     kernels.count_launch("filter_bank")
     err = lib.cvs_filter_bank(
         image.data_ptr(), out.data_ptr(), n, h, w, K, T,
-        xt.ctypes.data_as(ctypes.c_void_p), yt.ctypes.data_as(ctypes.c_void_p),
+        _host(xt), _host(yt),
         kernels.stream_handle(image.device),
     )
     kernels.check(err, "filter_bank")
@@ -221,6 +230,61 @@ def g2_features_full_plain(
     return p3, dy, dx, ct, st, basis
 
 
+_MAX_LEVELS = 16  # kernels C and D: levels per launch
+
+
+def g2_features_levels(
+    levels: Sequence[torch.Tensor], xtaps, ytaps, *, threshold: float, nms_radius: int = 2
+) -> List[Tuple[torch.Tensor, ...]]:
+    """The detector front-end of every level of a pyramid.
+
+    ``levels``: images ``[..., H_l, W_l]`` with the same leading axes ->
+    one ``(p3, dy, dx, ct, st, basis [..., 7, H_l, W_l])`` per level, each
+    with the contract of :func:`g2_features_full`. On the card all levels
+    are one launch of kernel C; its plain version is a loop of
+    :func:`g2_features_full_plain`."""
+    levels = list(levels)
+    if all(_on_cpu(lv) for lv in levels):
+        return [
+            g2_features_full_plain(lv, xtaps, ytaps, threshold=threshold, nms_radius=nms_radius)
+            for lv in levels
+        ]
+    xt = np.ascontiguousarray(xtaps, np.float32)
+    yt = np.ascontiguousarray(ytaps, np.float32)
+    K, T = xt.shape
+    if K != 7 or yt.shape != (K, T) or T > 13 or T < 3 or T % 2 == 0:
+        raise ValueError(f"g2_features: needs the 7-filter G2/H2 bank, got {xt.shape}/{yt.shape}")
+    if not 1 <= nms_radius <= 4:
+        raise ValueError(f"g2_features: nms_radius {nms_radius} not in [1, 4]")
+    if not 1 <= len(levels) <= _MAX_LEVELS:
+        raise ValueError(f"g2_features: {len(levels)} levels, at most {_MAX_LEVELS}")
+    batch = levels[0].shape[:-2]
+    for lv in levels:
+        _require(lv, "image", 2)
+        if lv.device != levels[0].device or lv.shape[:-2] != batch:
+            raise ValueError("g2_features: levels differ in device or leading axes")
+    n = int(np.prod(batch)) if batch else 1
+    out = []
+    for lv in levels:
+        maps = [torch.empty_like(lv) for _ in range(5)]
+        basis = torch.empty(tuple(batch) + (7,) + tuple(lv.shape[-2:]), dtype=torch.float32,
+                            device=lv.device)
+        out.append((*maps, basis))
+    if n == 0:
+        return out
+    ptrs = np.array([[lv.data_ptr(), o[5].data_ptr(), *(m.data_ptr() for m in o[:5])]
+                     for lv, o in zip(levels, out)], np.int64)
+    hw = np.array([lv.shape[-2:] for lv in levels], np.int32)
+    lib = kernels.library()
+    kernels.count_launch("g2_features_full")
+    err = lib.cvs_g2_features(
+        _host(ptrs), _host(hw), len(levels), n, T, _host(xt), _host(yt),
+        float(threshold), int(nms_radius), kernels.stream_handle(levels[0].device),
+    )
+    kernels.check(err, "g2_features_full")
+    return out
+
+
 def g2_features_full(
     image: torch.Tensor, xtaps, ytaps, *, threshold: float, nms_radius: int = 2
 ) -> Tuple[torch.Tensor, ...]:
@@ -229,39 +293,39 @@ def g2_features_full(
     ``image [..., H, W]`` -> ``(p3, dy, dx, ct, st, basis [..., 7, H, W])``
     with the contract of the reference's _g2_features_full_reference_xla:
     ``p3[..., 1::3, 1::3]`` is the 3x3-cell max table that
-    features.keypoints.detect_keypoints_packed selects from. On the card
-    the basis comes from kernel A and the maps from kernel C's two
-    per-pixel passes."""
+    features.keypoints.detect_keypoints_packed selects from. On the card it
+    is kernel C with one level."""
+    return g2_features_levels(
+        [image], xtaps, ytaps, threshold=threshold, nms_radius=nms_radius
+    )[0]
+
+
+def g2_feature_maps(image: torch.Tensor, xtaps, ytaps) -> Tuple[torch.Tensor, ...]:
+    """Fused detector maps: ``image [..., H, W]`` -> ``(score, ct, st)``
+    float32, the corner score c1 - |(c2, c3)| and the half-angle orientation
+    (the reference's g2_feature_maps_pallas). On the card: kernel E′, the
+    bank in registers and the feature tail of kernel C."""
+    xt = np.ascontiguousarray(xtaps, np.float32)
+    yt = np.ascontiguousarray(ytaps, np.float32)
     if _on_cpu(image):
-        return g2_features_full_plain(
-            image, xtaps, ytaps, threshold=threshold, nms_radius=nms_radius
-        )
+        return g2_feature_maps_plain(filter_bank_plain(image, xt, yt))
     _require(image, "image", 2)
-    if np.asarray(xtaps).shape[0] != 7:
-        raise ValueError("g2_features_full: needs the 7-filter G2/H2 bank")
-    if not 1 <= nms_radius <= 4:
-        raise ValueError(f"g2_features_full: nms_radius {nms_radius} not in [1, 4]")
+    K, T = xt.shape
+    if K != 7 or yt.shape != (K, T) or T > _MAPS_MAX_T or T % 2 == 0:
+        raise ValueError(f"g2_feature_maps: unsupported taps {xt.shape}/{yt.shape}")
     *batch, h, w = image.shape
     n = int(np.prod(batch)) if batch else 1
-    basis = filter_bank(image, xtaps, ytaps)
-    maps = [torch.empty_like(image) for _ in range(6)]
-    score, ct, st, p3, dy, dx = maps
+    maps = tuple(torch.empty_like(image) for _ in range(3))
     if n == 0:
-        return p3, dy, dx, ct, st, basis
+        return maps
     lib = kernels.library()
-    stream = kernels.stream_handle(image.device)
-    kernels.count_launch("g2_features_full")
-    err = lib.cvs_g2_maps(
-        basis.data_ptr(), score.data_ptr(), ct.data_ptr(), st.data_ptr(),
-        n, h, w, stream,
+    kernels.count_launch("g2_feature_maps")
+    err = lib.cvs_features_g2(
+        image.data_ptr(), *(m.data_ptr() for m in maps), n, h, w, T, _host(xt), _host(yt),
+        kernels.stream_handle(image.device),
     )
-    kernels.check(err, "g2_features_full/maps")
-    err = lib.cvs_g2_select(
-        score.data_ptr(), p3.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        n, h, w, float(threshold), int(nms_radius), stream,
-    )
-    kernels.check(err, "g2_features_full/select")
-    return p3, dy, dx, ct, st, basis
+    kernels.check(err, "g2_feature_maps")
+    return maps
 
 
 # ---------------------------------------------------------------------------
@@ -390,13 +454,12 @@ def _maps(image, xtaps, ytaps, out_dtype, order: int):
         return maps
     lib = kernels.library()
     name = f"g{order}_maps"
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    args = [image.data_ptr(), *(m.data_ptr() for m in maps), n, h, w, T, ptr(xt), ptr(yt)]
+    args = [image.data_ptr(), *(m.data_ptr() for m in maps), n, h, w, T, _host(xt), _host(yt)]
     if order == 4:
         terms = g4_live_terms()
         idx = np.array([t[:3] for t in terms], np.int32)
         wts = np.array([t[3] for t in terms], np.float32)
-        args += [ptr(idx), ptr(wts), len(terms)]
+        args += [_host(idx), _host(wts), len(terms)]
     kernels.count_launch(name)
     err = getattr(lib, f"cvs_maps_g{order}")(
         *args, int(out_dtype == torch.bfloat16), kernels.stream_handle(image.device)
@@ -490,7 +553,7 @@ def filter_bank_adjoint(grad: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
     kernels.count_launch("filter_bank_adj")
     err = lib.cvs_filter_bank_adj(
         grad.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, h, w, K, T,
-        xt.ctypes.data_as(ctypes.c_void_p), yt.ctypes.data_as(ctypes.c_void_p),
+        _host(xt), _host(yt),
         kernels.stream_handle(grad.device),
     )
     kernels.check(err, "filter_bank_adj")

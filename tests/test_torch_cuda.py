@@ -64,6 +64,92 @@ def test_torch_cuda_kernels_match_plain(cuda, shape):
         assert after[name] > before[name]
 
 
+def _pyramid(cuda, shape, levels, seed=6):
+    out = [torch.from_numpy(_texture(shape, seed)).to(cuda)]
+    for _ in range(levels - 1):
+        out.append(cf.pyr_down_plain(out[-1]).contiguous())
+    return out
+
+
+@pytest.mark.parametrize("threshold", [1.0, 50.0])
+@pytest.mark.parametrize("nms", [2, 3, 4])
+@pytest.mark.parametrize("shape,levels", [((1, 480, 640), 5), ((2, 61, 83), 8), ((3, 5), 1)])
+def test_torch_cuda_g2_features_levels_bit_equal(cuda, shape, levels, nms, threshold):
+    """Kernel C: every level of a pyramid in one launch, bit for bit against
+    the plain version level by level (61x83 goes down to 2x3, 1x2 and 1x1
+    levels, narrower than the bank and the NMS window)."""
+    bank = taps.g2h2_bank()
+    lv = _pyramid(cuda, shape, levels)
+    before = kernels.launch_counts()["g2_features_full"]
+    got = cf.g2_features_levels(lv, bank.xtaps, bank.ytaps, threshold=threshold, nms_radius=nms)
+    assert kernels.launch_counts()["g2_features_full"] == before + 1
+    kept = 0
+    for img, g in zip(lv, got):
+        want = cf.g2_features_full_plain(img, bank.xtaps, bank.ytaps, threshold=threshold,
+                                         nms_radius=nms)
+        for a, b in zip(g, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+        kept += int((g[0] > cf.P3_SENTINEL * 0.5).sum())
+    assert kept > 0 or min(shape[-2:]) <= 2 * nms + 2
+
+
+def _corner_clouds(cuda, shapes, counts, S, seed):
+    """ys/xs [2, sum(counts), S]: rotated 4x4-style grids around keypoints at
+    the levels' corners and edges (clipped at the image), every eighth
+    keypoint with samples scattered over the whole level (and beyond it)."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(S)))
+    off = (np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="ij"), -1)
+           .reshape(-1, 2)[:S] - (side - 1) / 2) * 3.0
+    ys, xs = [], []
+    for (h, w), k in zip(shapes, counts):
+        cy = rng.choice([0.0, h - 1.0, rng.uniform(0, h - 1)], (2, k))
+        cx = rng.choice([0.0, w - 1.0, rng.uniform(0, w - 1)], (2, k))
+        th = rng.uniform(-np.pi, np.pi, (2, k, 1))
+        y = cy[..., None] + off[:, 0] * np.cos(th) - off[:, 1] * np.sin(th)
+        x = cx[..., None] + off[:, 0] * np.sin(th) + off[:, 1] * np.cos(th)
+        y[:, ::8] = rng.uniform(-3, h + 3, y[:, ::8].shape)
+        x[:, ::8] = rng.uniform(-3, w + 3, x[:, ::8].shape)
+        ys.append(y)
+        xs.append(x)
+    cat = lambda a: torch.from_numpy(np.concatenate(a, 1).astype(np.float32)).to(cuda)  # noqa: E731
+    return cat(ys), cat(xs)
+
+
+@pytest.mark.parametrize("S", [16, 40])
+def test_torch_cuda_sample_patches_levels_bit_equal(cuda, S):
+    """Kernel D: the keypoints of five levels in one launch, bit for bit
+    against the plain version level by level — clouds clipped at the
+    corners, widths that are and are not multiples of 4, an empty level, K
+    not a multiple of the block's keypoints, scattered samples."""
+    shapes = [(40, 64), (61, 83), (16, 21), (3, 5), (1, 1)]
+    counts = [37, 21, 0, 11, 3]
+    bases = [torch.from_numpy(_texture((2, 7) + s, seed=3 + i)).to(cuda) for i, s in enumerate(shapes)]
+    ys, xs = _corner_clouds(cuda, shapes, counts, S, seed=4)
+    before = kernels.launch_counts()["desc_sample"]
+    got = cd.sample_patches_levels(bases, ys, xs, counts)
+    assert kernels.launch_counts()["desc_sample"] == before + 1
+    want = cd.sample_patches_levels_plain(bases, ys, xs, counts)
+    assert got.shape == (2, sum(counts), S, 7) and torch.equal(got, want)
+    for b, k0, k1 in zip(bases, np.cumsum([0] + counts[:-1]), np.cumsum(counts)):
+        one = cd.sample_patches(b, ys[:, k0:k1].contiguous(), xs[:, k0:k1].contiguous())
+        assert torch.equal(one, got[:, k0:k1])
+
+
+@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (2, 61, 83), (3, 5)])
+def test_torch_cuda_g2_feature_maps_bit_equal(cuda, shape):
+    """Kernel E′ against its plain version (the plain bank, then the feature
+    tail), bit for bit."""
+    bank = taps.g2h2_bank()
+    img = torch.from_numpy(_texture(shape, seed=9)).to(cuda)
+    before = kernels.launch_counts()["g2_feature_maps"]
+    got = cf.g2_feature_maps(img, bank.xtaps, bank.ytaps)
+    assert kernels.launch_counts()["g2_feature_maps"] == before + 1
+    want = cf.g2_feature_maps_plain(filter_bank_plain(img, bank.xtaps, bank.ytaps))
+    for a, b in zip(got, want):
+        assert a.shape == img.shape and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (1, 185, 256), (2, 5, 9)])
 def test_torch_cuda_maps_kernels_match_plain(cuda, shape):
     """Kernel E (G2, float32 and bfloat16 maps) and its G4 instantiation
@@ -120,11 +206,26 @@ def test_torch_cuda_wrappers_raise_on_unsupported_input(cuda):
         cf.g2_maps(torch.zeros((8, 8), device=cuda), np.zeros((11, 9)), np.zeros((11, 9)))
     with pytest.raises(ValueError):
         cf.filter_bank_adjoint(torch.zeros((7, 8, 8), device=cuda), np.zeros((7, 15)), np.zeros((7, 15)))
+    bank = taps.g2h2_bank()
+    with pytest.raises(ValueError):  # the NMS window: radius 1 to 4
+        cf.g2_features_full(torch.zeros((8, 8), device=cuda), bank.xtaps, bank.ytaps,
+                            threshold=1.0, nms_radius=5)
+    with pytest.raises(ValueError):  # levels with other leading axes
+        cf.g2_features_levels([torch.zeros((2, 8, 8), device=cuda), torch.zeros((1, 4, 4), device=cuda)],
+                              bank.xtaps, bank.ytaps, threshold=1.0)
+    with pytest.raises(ValueError):  # the feature tail takes the 7-filter bank only
+        cf.g2_feature_maps(torch.zeros((8, 8), device=cuda), np.zeros((11, 9)), np.zeros((11, 9)))
+    with pytest.raises(ValueError):  # counts that do not sum to K
+        z = torch.zeros((1, 7, 8, 8), device=cuda)
+        cd.sample_patches_levels([z, z], torch.zeros((1, 5, 16), device=cuda),
+                                 torch.zeros((1, 5, 16), device=cuda), [2, 2])
 
 
 def test_torch_cuda_vo_step_on_the_card(cuda):
     """Two rendered frames through the port's VO on the card: features
-    land on the device and the kernels of the path launch."""
+    land on the device, and each frame's front-end is four pyr_down
+    launches, one kernel C launch for all levels and one kernel D launch
+    for all keypoints; the bank kernel A is not on this path."""
     from cvsteer_tpu_torch.io.render import PlanesSequence
     from cvsteer_tpu_torch.slam.vo import VOConfig, init_vo, process_image
 
@@ -135,4 +236,6 @@ def test_torch_cuda_vo_step_on_the_card(cuda):
         state = process_image(state, seq.render(k))
     assert state.keyframes[0].features.desc.device.type == "cuda"
     counts = kernels.launch_counts()
-    assert all(counts[k] > 0 for k in ("filter_bank", "pyr_down", "g2_features_full", "desc_sample"))
+    assert counts["filter_bank"] == 0
+    assert counts["pyr_down"] == 2 * 4
+    assert counts["g2_features_full"] == counts["desc_sample"] == 2

@@ -17,7 +17,10 @@ import torch
 
 from cvsteer_tpu.features.frontend import extract_features as j_extract
 from cvsteer_tpu.features.matching import match_descriptors as j_match
-from cvsteer_tpu_torch.features.frontend import FrontendConfig, extract_features
+from cvsteer_tpu_torch.features.descriptors import phase_descriptors_batch
+from cvsteer_tpu_torch.features.frontend import Features, FrontendConfig, extract_features
+from cvsteer_tpu_torch.features.keypoints import detect_keypoints_packed
+from cvsteer_tpu_torch.filters import g2 as tg2
 from cvsteer_tpu_torch.features.matching import gather_matched_points, match_descriptors
 
 torch.set_num_threads(2)
@@ -75,6 +78,43 @@ def test_torch_extract_features_batched_equals_single():
         one = extract_features(torch.from_numpy(imgs[b]))
         for a, c in zip(batch, one):
             np.testing.assert_array_equal(a[b].numpy(), c.numpy())
+
+
+def _per_level_features(imgs: torch.Tensor, cfg: FrontendConfig) -> Features:
+    """extract_features as the composition of the public per-level
+    functions: one g2_features_full, top-k and descriptor call per level."""
+    from cvsteer_tpu_torch.ops.cuda_frontend import g2_features_full
+    from cvsteer_tpu_torch.ops.pyramid import gaussian_pyramid
+
+    bank = tg2.g2_bank()
+    parts = []
+    for lvl, lv in enumerate(gaussian_pyramid(imgs, cfg.levels)):
+        p3, dy, dx, ct, st, basis = g2_features_full(
+            lv, bank.xtaps, bank.ytaps, threshold=cfg.threshold, nms_radius=cfg.nms_radius)
+        kp = detect_keypoints_packed(p3, dy, dx, ct, st, max_keypoints=cfg.level_capacity(lvl))
+        kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
+        desc = phase_descriptors_batch(basis, kp_d, grid=cfg.descriptor_grid,
+                                       spacing=cfg.descriptor_spacing,
+                                       pi_invariant=cfg.desc_pi_invariant)
+        parts.append(Features(kp.yx * float(2**lvl), kp.score, kp.theta,
+                              torch.full(kp.score.shape, lvl, dtype=torch.int32), desc, kp.valid))
+    return Features(*(torch.cat(xs, dim=1) for xs in zip(*parts)))
+
+
+@pytest.mark.parametrize("cfg", [
+    FrontendConfig(),
+    FrontendConfig(upright_desc=True, desc_pi_invariant=True, nms_radius=3, threshold=4.0),
+])
+def test_torch_extract_features_equals_per_level_composition(cfg):
+    """All levels through one detector call and one descriptor call give the
+    per-level results bit for bit (the steps are elementwise per keypoint)."""
+    imgs = torch.from_numpy(np.stack([_image(5, (96, 128)), _image(6, (96, 128))]))
+    got = extract_features(imgs, cfg=cfg)
+    want = _per_level_features(imgs, cfg)
+    assert int(got.valid.sum()) > 100
+    for name, a, b in zip(Features._fields, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize(

@@ -1,8 +1,9 @@
 """The port's kernel modules against the reference package, on CPU.
 
 Every kernel of the port (cvsteer_tpu_torch.ops.cuda_frontend: A filter
-bank, B pyramid down, C detector maps; ops.cuda_desc: D descriptor
-sampling) takes its plain PyTorch version for CPU tensors; these tests
+bank, B pyramid down, C detector maps of all levels, E′ feature maps;
+ops.cuda_desc: D descriptor sampling of all levels) takes its plain
+PyTorch version for CPU tensors; these tests
 hold those plain versions to the reference package's functions on the same
 numpy inputs (the reference runs its XLA/CPU path, as its own suite does),
 at the reference tests' bars. The kernels themselves run against their
@@ -23,7 +24,7 @@ from cvsteer_tpu.features.keypoints import detect_keypoints_packed as j_detect_p
 from cvsteer_tpu.filters import taps as jtaps
 from cvsteer_tpu.ops import pyramid as jpyr
 from cvsteer_tpu.ops.pallas_frontend import P3_SENTINEL as J_SENTINEL
-from cvsteer_tpu.ops.pallas_frontend import _g2_features_full_reference_xla
+from cvsteer_tpu.ops.pallas_frontend import _g2_features_full_reference_xla, g2_feature_maps_pallas
 from cvsteer_tpu.ops.interp import bilinear_sample_channels_last_pair_bf16 as j_pair_bf16
 from cvsteer_tpu.ops.sepconv import filter_bank_xla
 from cvsteer_tpu_torch import kernels
@@ -143,6 +144,33 @@ def test_torch_g2_features_full_plain_matches_reference():
     assert np.abs(p3g[both] - p3r[both]).max() <= 1e-5 * np.abs(p3r[both]).max()
 
 
+@pytest.mark.parametrize("shape", [(2, 48, 64), (1, 37, 53)])
+def test_torch_g2_feature_maps_matches_reference(shape, record_property):
+    """E′ (g2_feature_maps) against the reference's g2_feature_maps_pallas,
+    run as its own suite runs it on the CPU (interpret mode, its bf16x3
+    matrix-unit class): score within 1e-4 of its scale; ct/st within 5e-3
+    where the orientation is firm (|c3| > 1e-4 of its max, as in
+    test_torch_g2_features_full_plain_matches_reference)."""
+    img = _texture(np.random.default_rng(12), shape)
+    bank = jtaps.g2h2_bank()
+    ref = [np.asarray(a) for a in g2_feature_maps_pallas(jnp.asarray(img), bank.xtaps, bank.ytaps)]
+    got = [a.numpy() for a in cf.g2_feature_maps(torch.from_numpy(img), bank.xtaps, bank.ytaps)]
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == shape and g.dtype == np.float32
+    basis = np.asarray(filter_bank_xla(jnp.asarray(img), bank.xtaps, bank.ytaps))
+    b = [basis[..., k, :, :] for k in range(7)]
+    c3 = -(b[0] * b[1]) - b[1] * b[2] - 0.9375 * (b[5] * b[6] + b[3] * b[4]) \
+        - 1.6875 * b[4] * b[5] - 0.1875 * b[3] * b[6]
+    firm = np.abs(c3) > 1e-4 * np.abs(c3).max()
+    score_rel = np.abs(got[0] - ref[0]).max() / np.abs(ref[0]).max()
+    orient = max(np.abs(g - r)[firm].max() for g, r in zip(got[1:], ref[1:]))
+    print(f"parity g2_feature_maps {shape}: score {score_rel:.2e} of scale, ct/st {orient:.2e}")
+    record_property("score_rel", float(score_rel))
+    record_property("orient_abs", float(orient))
+    assert score_rel <= 1e-4
+    assert orient <= 5e-3
+
+
 def test_torch_detect_keypoints_packed_same_sets():
     """Same p3/dy/dx/ct/st in, same keypoint SETS out (tie order of
     torch.topk and lax.approx_max_k may differ)."""
@@ -196,7 +224,8 @@ def test_torch_descriptor_sampling_matches_pair_table_path():
 
 
 @pytest.mark.parametrize("wrapper", ["filter_bank", "pyr_down", "g2_features_full", "sample_patches",
-                                     "g2_maps", "g4_maps", "filter_bank_adjoint"])
+                                     "g2_maps", "g4_maps", "filter_bank_adjoint", "g2_feature_maps",
+                                     "g2_features_levels", "sample_patches_levels"])
 def test_torch_wrappers_refuse_other_devices(wrapper):
     """A wrapper takes its plain version only for CPU tensors; any other
     device that is not CUDA is refused (never silently moved)."""
@@ -210,6 +239,10 @@ def test_torch_wrappers_refuse_other_devices(wrapper):
         "g2_maps": lambda: cf.g2_maps(x[0, 0], xt, xt),
         "g4_maps": lambda: cf.g4_maps(x[0, 0], jtaps.g4h4_bank().xtaps, jtaps.g4h4_bank().ytaps),
         "filter_bank_adjoint": lambda: cf.filter_bank_adjoint(x[0], xt, xt),
+        "g2_feature_maps": lambda: cf.g2_feature_maps(x[0, 0], xt, xt),
+        "g2_features_levels": lambda: cf.g2_features_levels([x[0, 0], x[0, 0, ::2]], xt, xt,
+                                                            threshold=1.0),
+        "sample_patches_levels": lambda: cd.sample_patches_levels([x, x], x[:, 0], x[:, 0], [8, 8]),
     }[wrapper]
     with pytest.raises(ValueError):
         call()
