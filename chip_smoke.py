@@ -20,7 +20,8 @@ Phases (any failure exits non-zero and prints no result line):
              inside torch.profiler over 25, and call_ms, CUDA events around
              one call on an idle card (median of 25: what a caller that
              waits pays, host work included); compute each kernel's bound
-             from the shapes.
+             from the shapes. Kernel A is also timed with the G4/H4 bank,
+             the pyramid path's other bank (g4_bank_* fields).
 5. VO      — the port's default-configuration VO on a rendered scene with
              known poses (fx = fy = 500, cx = 320, cy = 240) through init_vo
              -> process_image -> finalize, the loop of
@@ -366,9 +367,12 @@ def check_kernels(frame, frames512, fish):
                 return conv(x[:, None])
         return call
 
-    # A: the G2/H2 bank (K=7, T=9) on every level of the VO pyramid
+    # A: the G2/H2 bank (K=7, T=9) on every level of the VO pyramid; beside
+    # it, the pyramid path's other bank, G4/H4 (K=11, T=13), on the same levels
+    g4 = g4_bank()
     err, scale, lib_err, bound = 0.0, 0.0, 0.0, Bound()
-    conv = conv_bank(xt, yt)
+    err4, scale4 = 0.0, 0.0
+    conv, conv4 = conv_bank(xt, yt), conv_bank(g4.xtaps, g4.ytaps)
     for lv in levels:
         k = cf.filter_bank(lv, xt, yt)
         p = cf.filter_bank_plain(lv, xt, yt)
@@ -377,14 +381,21 @@ def check_kernels(frame, frames512, fish):
         lib_err = max(lib_err, (conv(lv) - p).abs().max().item())
         px = lv.numel()
         bound.add(px * 4 * (1 + 7), bank_flops(px, xt, yt))
+        p = cf.filter_bank_plain(lv, g4.xtaps, g4.ytaps)
+        err4 = max(err4, (cf.filter_bank(lv, g4.xtaps, g4.ytaps) - p).abs().max().item())
+        scale4 = max(scale4, p.abs().max().item())
+    g4_calls = [lambda lv=lv: cf.filter_bank(lv, g4.xtaps, g4.ytaps) for lv in levels]
     record(
         "filter_bank", "cvsteer_tpu_torch/kernels/csrc/filter_bank.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:142 filter_bank_pallas (+ :1311 bank_tiled_pallas)",
-        err, err <= TOL_REL * scale,
+        err, err <= TOL_REL * scale and err4 <= TOL_REL * scale4,
         timings([lambda lv=lv: cf.filter_bank(lv, xt, yt) for lv in levels], ("filter_bank_kernel",), 1,
                 [lambda lv=lv: cf.filter_bank_plain(lv, xt, yt) for lv in levels],
                 [lambda lv=lv: conv(lv) for lv in levels]), bound,
-        shapes=shapes, library_abs_err=lib_err,
+        shapes=shapes, library_abs_err=lib_err, g4_bank_max_abs_err=err4,
+        g4_bank_device_ms=device_ms(lambda: [c() for c in g4_calls], ("filter_bank_kernel",), len(levels))[0],
+        g4_bank_call_ms=sum(map(call_ms, g4_calls)),
+        g4_bank_library_device_ms=device_ms(lambda: [conv4(lv) for lv in levels])[0],
     )
 
     # B: pyramid down, the 4 steps of the 5-level pyramid
@@ -477,7 +488,6 @@ def check_kernels(frame, frames512, fish):
     # timed shape), the VO frame size and the unaligned fish
     inputs = [torch.from_numpy(frames512[:CLI_BATCH]).cuda(), img,
               torch.from_numpy(fish).cuda()[None].contiguous()]
-    g4 = g4_bank()
     for order, name, fn, plain, bk, repl in (
         (2, "g2_maps", cf.g2_maps, cf.g2_maps_plain, bank,
          "cvsteer_tpu/ops/pallas_frontend.py:946 g2_maps_tiled_pallas mode \"maps\" (call :1034; g2_maps_pallas :806)"),
@@ -498,7 +508,7 @@ def check_kernels(frame, frames512, fish):
         bound = Bound()
         bound.add(px * (4 + 3 * 2), bank_flops(px, bk.xtaps, bk.ytaps) + px * maps_tail_flops(order))
         record(
-            name, "cvsteer_tpu_torch/kernels/csrc/g2_maps.cu", repl, err, rel <= TOL_REL,
+            name, f"cvsteer_tpu_torch/kernels/csrc/{name}.cu", repl, err, rel <= TOL_REL,
             timings([lambda: fn(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)], ("maps_kernel",), 1,
                     [lambda: plain(batch, bk.xtaps, bk.ytaps, out_dtype=torch.bfloat16)]),
             bound, max_rel_err=rel, bit_equal=bits, timed_shape=list(batch.shape),
@@ -519,7 +529,7 @@ def check_kernels(frame, frames512, fish):
     bound = Bound()
     bound.add(batch.numel() * (4 + 3 * 4), bank_flops(batch.numel(), xt, yt) + 74 * batch.numel())
     record(
-        "g2_feature_maps", "cvsteer_tpu_torch/kernels/csrc/g2_maps.cu",
+        "g2_feature_maps", "cvsteer_tpu_torch/kernels/csrc/g2_feature_maps.cu",
         "cvsteer_tpu/ops/pallas_frontend.py:881 g2_feature_maps_pallas (g2_maps_tiled_pallas :946 mode \"features\", call :1034)",
         err, bits,
         timings([lambda: cf.g2_feature_maps(batch, xt, yt)], ("maps_kernel",), 1, [lambda: plain_fm(batch)]),

@@ -29,17 +29,23 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// Separable banks (kernels A, E and F)
+// Separable banks: the sum order
 //
-// The three kernels share one sum-order contract with their plain versions
-// (ops/sepconv.py::filter_bank_plain, ops/cuda_frontend.py): a row pass,
-// then a column pass, each summing its taps in order from t = 0 with one
-// rounding per operation (the library builds with --fmad=false). The
-// helpers below are the only place that order is written.
+// Kernels A, C, E and F share one sum-order contract with their plain
+// versions (ops/sepconv.py::filter_bank_plain, ops/cuda_frontend.py): a row
+// pass, then a column pass, each summing its taps in order from t = 0 with
+// one rounding per operation (the library builds with --fmad=false).
+// strip_pass below writes that order for A, C and E (bank_core.cuh);
+// row_pass and col_at write its transpose for F.
 // ---------------------------------------------------------------------------
 
 constexpr int kBankMaxK = 11;
 constexpr int kBankMaxT = 17;
+
+// ---------------------------------------------------------------------------
+// Kernel F's helpers: by-value taps, zero-extended staging and the
+// transposed (flipped) passes of the bank's adjoint
+// ---------------------------------------------------------------------------
 
 // The taps of one bank, passed by value as a kernel parameter: the hardware
 // keeps it in the constant bank and broadcasts it to a warp, and each launch
@@ -62,56 +68,53 @@ inline SepTaps pack_taps(const float* xtaps, const float* ytaps, int k, int t) {
 }
 
 // Stage rows [y_org, y_org + th) x columns [x_org, x_org + tw) of one plane
-// into shared memory, the block's threads striding over it: REFLECT_101
-// indices (kReflect) or zero outside the plane.
+// into shared memory, the block's threads striding over it, zero outside
+// the plane. (Reflected staging is stage_reflect's.)
 template <bool kReflect, int TH, int TW>
 __device__ __forceinline__ void stage_tile(float (&tile)[TH][TW], const float* __restrict__ src,
                                            int h, int w, int y_org, int x_org, int th, int tw) {
+    static_assert(!kReflect, "stage_tile zero-extends; stage_reflect reflects");
     for (int i = threadIdx.x; i < th * tw; i += blockDim.x) {
         const int ty = i / tw, tx = i - (i / tw) * tw;
         const int gy = y_org + ty, gx = x_org + tx;
-        if (kReflect) {
-            tile[ty][tx] = src[(size_t)reflect101(gy, h) * w + reflect101(gx, w)];
-        } else {
-            tile[ty][tx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? src[(size_t)gy * w + gx]
-                                                                     : 0.0f;
-        }
+        tile[ty][tx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? src[(size_t)gy * w + gx] : 0.0f;
     }
 }
 
-// Row pass of filter k over the first th staged rows: rows[y][c] =
-// sum_t x_k[t] tile[y][c + t] (the correlation) or, kFlip, sum_t x_k[t]
-// tile[y][c + T - 1 - t] (its transpose).
+// Transposed row pass of filter k over the first th staged rows:
+// rows[y][c] = sum_t x_k[t] tile[y][c + T - 1 - t].
 template <bool kFlip, int TH, int TW, int RW>
 __device__ __forceinline__ void row_pass(const float (&tile)[TH][TW], float (&rows)[TH][RW],
                                          const SepTaps& taps, int k, int T, int th) {
+    static_assert(kFlip, "the forward row pass is strip_pass's");
     for (int i = threadIdx.x; i < th * RW; i += blockDim.x) {
         const int y = i / RW, c = i - (i / RW) * RW;
-        float a = tile[y][c + (kFlip ? T - 1 : 0)] * taps.x[k][0];
-        for (int t = 1; t < T; ++t) a = a + tile[y][c + (kFlip ? T - 1 - t : t)] * taps.x[k][t];
+        float a = tile[y][c + T - 1] * taps.x[k][0];
+        for (int t = 1; t < T; ++t) a = a + tile[y][c + T - 1 - t] * taps.x[k][t];
         rows[y][c] = a;
     }
 }
 
-// Column pass of filter k at row y, column c of the row buffer:
-// sum_t y_k[t] rows[y + t][c] or, kFlip, sum_t y_k[t] rows[y + T - 1 - t][c].
+// Transposed column pass of filter k at row y, column c of the row buffer:
+// sum_t y_k[t] rows[y + T - 1 - t][c].
 template <bool kFlip, int TH, int RW>
 __device__ __forceinline__ float col_at(const float (&rows)[TH][RW], const SepTaps& taps, int k,
                                         int T, int y, int c) {
-    float a = rows[y + (kFlip ? T - 1 : 0)][c] * taps.y[k][0];
-    for (int t = 1; t < T; ++t) a = a + rows[y + (kFlip ? T - 1 - t : t)][c] * taps.y[k][t];
+    static_assert(kFlip, "the forward column pass is strip_pass's");
+    float a = rows[y + T - 1][c] * taps.y[k][0];
+    for (int t = 1; t < T; ++t) a = a + rows[y + T - 1 - t][c] * taps.y[k][t];
     return a;
 }
 
 // ---------------------------------------------------------------------------
-// Register-blocked passes (kernel C)
+// Register-blocked passes (kernels A, C and E)
 //
-// The same sum order as row_pass / col_at (taps ascending from t = 0, the
-// first product not added to zero), but a thread computes a strip of P
-// outputs from a window of P + T - 1 staged values that it reads from shared
-// memory once into registers: each staged value is read once per strip and
-// filter instead of once per tap. T is a compile-time constant so the
-// window stays in registers.
+// The bank's sum order (taps ascending from t = 0, the first product not
+// added to zero), with a thread computing a strip of P outputs from a window
+// of P + T - 1 staged values that it reads from shared memory once into
+// registers: each staged value is read once per strip and filter instead of
+// once per tap. T is a compile-time constant so the window stays in
+// registers.
 // ---------------------------------------------------------------------------
 
 // P consecutive outputs of the correlation with taps[0..T) from the window

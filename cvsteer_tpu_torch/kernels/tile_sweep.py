@@ -1,14 +1,34 @@
-"""Tile shapes of kernel C on the card: halo recompute against occupancy.
+"""Tile shapes of kernels C, A, E and E4 on the card, and every kernel's
+registers and spills.
 
-    python -m cvsteer_tpu_torch.kernels.tile_sweep [--tiles 32x64,16x64,...]
+    python -m cvsteer_tpu_torch.kernels.tile_sweep [--kernel c|a|e|e4|ptxas] [--tiles 32x64,...]
+                                                   [--strips 4,8] [--row-strips 2]
 
-Builds ``csrc/g2_features.cu`` once per tile shape (``-DCVS_C_TILE_H``,
-``-DCVS_C_TILE_W``, with ``-Xptxas -v`` for its registers and spills, all
-builds started together) into ``_build/sweep/``, runs each on the 5-level
-pyramid of a 480x640 frame (the VO path's shapes), checks it bit for bit
-against the plain version, and prints one JSON line per shape: registers,
-spills, shared memory per block, blocks per SM, tiles, and the device time
-per frame (torch.profiler over 25 calls). Needs an NVIDIA GPU and nvcc.
+``c``, ``a``, ``e`` and ``e4`` build the kernel's source once per shape (``-D``
+macros, ``-Xptxas -v`` for registers and spills, all builds started
+together) into ``_build/sweep/``, run each build through the kernel's
+wrapper at its path's shapes, check it bit for bit against the plain
+version, and print one JSON line per shape: registers, spill bytes, shared
+memory per block, blocks per SM (by registers, shared memory and threads)
+and device ms (torch.profiler over 25 calls).
+
+- ``c`` (g2_features.cu, ``CVS_C_TILE_H/W``): the 5-level pyramid of a
+  480x640 frame, one launch; ms per frame.
+- ``a`` (filter_bank.cu, ``CVS_A_TILE_H/W`` and the row-strip width
+  ``CVS_A_ROW_STRIP``, each of ``--row-strips``): the same 5 levels, one
+  launch per level, with the G2/H2 bank (R = 4) and the G4/H4 bank
+  (R = 6); ms per frame for each.
+- ``e4`` (g4_maps.cu, ``CVS_E4_TILE_H/W``, the column-strip height
+  ``CVS_E4_STRIP_H`` and the row-strip width ``CVS_E4_ROW_STRIP``, each
+  tile with each of ``--strips`` and ``--row-strips``): the CLI's
+  16x512x512 batch with bfloat16 maps; ms per batch.
+- ``e`` (g2_maps.cu, ``CVS_E_TILE_H/W``, ``CVS_E_STRIP_H``,
+  ``CVS_E_ROW_STRIP``): the same for kernel E, the G2/H2 maps
+  (g2_feature_maps.cu, E′, takes the same macros).
+
+``ptxas`` builds the whole library with ``-Xptxas -v`` and prints one JSON
+line per kernel instantiation (registers, spill bytes) and a last line with
+the number of instantiations that spill. Needs an NVIDIA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -18,36 +38,100 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
 from cvsteer_tpu_torch import kernels
 
-DEFAULT_TILES = "32x64,16x64,32x32,64x64,16x128,32x128,64x32"
+DEFAULT_TILES = {
+    "c": "32x64,16x64,32x32,64x64,16x128,32x128,64x32",
+    "a": "32x64,32x32,16x64,64x32,16x32,8x64,64x64",
+    "e4": "32x32,32x64,64x32,48x32,16x64",
+    "e": "32x64,64x32,32x32,16x64",
+}
+SOURCES = {  # kernel -> its source, the macros of its tile height and width, column-strip
+    # height and row-strip width (None: fixed in the source), its ctypes entry
+    "c": ("g2_features.cu", ("CVS_C_TILE_H", "CVS_C_TILE_W", None, None), "cvs_g2_features"),
+    "a": ("filter_bank.cu", ("CVS_A_TILE_H", "CVS_A_TILE_W", None, "CVS_A_ROW_STRIP"),
+          "cvs_filter_bank"),
+    "e4": ("g4_maps.cu", ("CVS_E4_TILE_H", "CVS_E4_TILE_W", "CVS_E4_STRIP_H", "CVS_E4_ROW_STRIP"),
+           "cvs_maps_g4"),
+    "e": ("g2_maps.cu", ("CVS_E_TILE_H", "CVS_E_TILE_W", "CVS_E_STRIP_H", "CVS_E_ROW_STRIP"),
+          "cvs_maps_g2"),
+}
+SMEM_PER_SM = 233472  # H100: 228 KB of shared memory per SM, 1 KB of it reserved per block
 
 
-def _build(th: int, tw: int):
-    """Start nvcc for one tile shape; returns (process, library path)."""
+def ptxas_usage(log: str):
+    """[(mangled kernel name, registers, spill bytes)] from an ``-Xptxas -v``
+    log: each kernel's "Function properties" block."""
+    out = []
+    for name, props, used in re.findall(r"Function properties for (\S+)\n(.*?)\n(.*?)\n", log):
+        regs = re.search(r"Used (\d+) registers", used)
+        if regs is None:
+            continue  # a device function's block
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", props))
+        out.append((name, int(regs.group(1)), spills))
+    return out
+
+
+def _demangle(names):
+    tool = shutil.which("cu++filt") or os.path.join(os.path.dirname(kernels._nvcc()), "cu++filt")
+    if not os.path.exists(tool):
+        return list(names)
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    got = res.stdout.splitlines()
+    return got if res.returncode == 0 and len(got) == len(names) else list(names)
+
+
+def _build(kernel: str, tag: str, defines):
+    """Start nvcc for one shape of ``kernel``; returns (process, library)."""
     out_dir = os.path.join(kernels.BUILD_DIR, "sweep")
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"libg2_features_{th}x{tw}.so")
-    srcs = [os.path.join(kernels.CSRC, f) for f in ("g2_features.cu", "filter_bank.cu")]
+    lib = os.path.join(out_dir, f"lib{kernel}_{tag}.so")
+    srcs = [os.path.join(kernels.CSRC, f) for f in sorted({SOURCES[kernel][0], "filter_bank.cu"})]
     cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "--ptxas-options=-v", "-shared",
-           f"-DCVS_C_TILE_H={th}", f"-DCVS_C_TILE_W={tw}", "-o", lib, *srcs]
+           *(f"-D{k}={v}" for k, v in defines.items()), "-o", lib, *srcs]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib
 
 
-def _ptxas(log: str, radius: int):
-    """(registers, spill bytes) of g2_features_kernel<radius> in a ptxas log."""
-    m = re.search(rf"Function properties for \S*g2_features_kernelILi{radius}E\S*\n(.*?)\n(.*?)\n", log)
-    if not m:
+def _load(path: str, entry: str):
+    """Load a sweep build and make the wrappers launch it."""
+    lib = ctypes.CDLL(path)
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = kernels._SIGNATURES[entry], ctypes.c_int
+    lib.cvs_error_string.argtypes, lib.cvs_error_string.restype = (ctypes.c_int,), ctypes.c_char_p
+    kernels._lib = lib
+
+
+def _usage(log: str, pattern: str):
+    """(max registers, total spill bytes) of the kernels whose mangled name
+    matches ``pattern``."""
+    hits = [(r, s) for name, r, s in ptxas_usage(log) if re.search(pattern, name)]
+    if not hits:
         return None, None
-    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", m.group(1)))
-    regs = re.search(r"Used (\d+) registers", m.group(2))
-    return (int(regs.group(1)) if regs else None), spills
+    return max(r for r, _ in hits), sum(s for _, s in hits)
 
 
-def _device_ms(fn, reps: int = 25) -> float:
+def _blocks_per_sm(regs, smem: int, threads: int = 256) -> int:
+    by_smem = SMEM_PER_SM // (smem + 1024)
+    by_threads = 2048 // threads
+    if regs is None:
+        return min(by_smem, by_threads)
+    per_warp = -(-regs * 32 // 256) * 256  # registers are allocated 256 per warp
+    return min(by_smem, by_threads, 65536 // (per_warp * (threads // 32)))
+
+
+def _bank_smem(th: int, tw: int, radius: int, n_rows: int) -> int:
+    """Shared bytes of one tile of kernels A and E (bank_core.cuh BankTile)."""
+    ih = th + 2 * radius
+    return 4 * (ih * ((tw + 2 * radius) | 1) + n_rows * ih * (tw | 1))
+
+
+def _device_ms(fn, kernel: str, reps: int = 25) -> float:
+    """Device ms of one call of ``fn``: the summed duration of the events of
+    the CUDA function ``kernel`` over ``reps`` calls, per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -60,71 +144,182 @@ def _device_ms(fn, reps: int = 25) -> float:
             fn()
         torch.cuda.synchronize()
     t = [e.time_range.elapsed_us() for e in prof.events()
-         if e.device_type == DeviceType.CUDA and "g2_features_kernel" in e.name]
+         if e.device_type == DeviceType.CUDA and kernel in e.name]
     if not t:
-        raise RuntimeError("torch.profiler reported no device time for g2_features_kernel")
-    return sum(t) / len(t) / 1e3
+        raise RuntimeError(f"torch.profiler reported no device time for {kernel}")
+    return sum(t) / reps / 1e3
 
 
-def main(argv=None) -> int:
+def _frame_levels():
+    import torch
+
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    frame = torch.from_numpy(PlanesSequence(n_frames=1, seed=0).render(0)).cuda()[None]
+    levels = [frame.contiguous()]
+    for _ in range(4):
+        levels.append(cf.pyr_down_plain(levels[-1]).contiguous())
+    return levels
+
+
+def sweep_c(builds, nms_radius: int):
+    import torch
+
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    bank, levels = g2_bank(), _frame_levels()
+    want = [cf.g2_features_full_plain(lv, bank.xtaps, bank.ytaps, threshold=1.0,
+                                      nms_radius=nms_radius) for lv in levels]
+    radius = (bank.xtaps.shape[1] - 1) // 2
+    for (th, tw, _, _), log, path in builds:
+        _load(path, "cvs_g2_features")
+        call = lambda: cf.g2_features_levels(levels, bank.xtaps, bank.ytaps,  # noqa: E731
+                                             threshold=1.0, nms_radius=nms_radius)
+        got = call()
+        same = all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+        # the kernel's shared-memory layout (g2_features.cu Layout), 6 row passes
+        hs = nms_radius + 1
+        sh, sw = th + 2 * hs, tw + 2 * hs
+        swr, shc = -(-sw // 8) * 8, -(-sh // 8) * 8
+        ih, iw, rs = shc + 2 * radius, (swr + 2 * radius) | 1, swr | 1
+        smem = 4 * (ih * iw + 6 * ih * rs + sh * sw)
+        regs, spills = _usage(log, rf"g2_features_kernelILi{radius}E")
+        n_tiles = sum(-(-lv.shape[-1] // tw) * -(-lv.shape[-2] // th) for lv in levels)
+        yield same, dict(
+            tile=f"{th}x{tw}", registers=regs, spill_bytes=spills, smem_bytes=smem,
+            blocks_per_sm=min(2, _blocks_per_sm(regs, smem)), tiles=n_tiles,
+            halo_factor=(ih * swr + shc * sw) / (2 * th * tw),
+            device_ms=_device_ms(call, "g2_features_kernel"),
+        )
+
+
+def sweep_a(builds):
+    import torch
+
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.filters.g4 import g4_bank
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    levels = _frame_levels()
+    banks = {"g2": (g2_bank(), 6), "g4": (g4_bank(), 10)}  # bank, distinct x-tap vectors
+    want = {k: [cf.filter_bank_plain(lv, b.xtaps, b.ytaps) for lv in levels] for k, (b, _) in banks.items()}
+    for (th, tw, _, sw), log, path in builds:
+        _load(path, "cvs_filter_bank")
+        rec, same = dict(tile=f"{th}x{tw}", row_strip=sw), True
+        for key, (b, n_rows) in banks.items():
+            radius = (b.xtaps.shape[1] - 1) // 2
+            calls = [lambda lv=lv, b=b: cf.filter_bank(lv, b.xtaps, b.ytaps) for lv in levels]
+            same &= all(torch.equal(c(), w) for c, w in zip(calls, want[key]))
+            regs, spills = _usage(log, rf"filter_bank_kernelILi{radius}E")
+            smem = _bank_smem(th, tw, radius, n_rows)
+            rec.update({f"{key}_registers": regs, f"{key}_spill_bytes": spills, f"{key}_smem_bytes": smem,
+                        f"{key}_blocks_per_sm": _blocks_per_sm(regs, smem),
+                        f"{key}_device_ms": _device_ms(lambda c=calls: [f() for f in c], "filter_bank_kernel")})
+        rec["tiles"] = sum(-(-lv.shape[-1] // tw) * -(-lv.shape[-2] // th) for lv in levels)
+        yield same, rec
+
+
+def sweep_maps(builds, order: int):
     import numpy as np
     import torch
 
     from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.filters.g4 import g4_bank
     from cvsteer_tpu_torch.io.render import PlanesSequence
     from cvsteer_tpu_torch.ops import cuda_frontend as cf
 
+    seq = PlanesSequence(n_frames=16, image_hw=(512, 512), cx=256, cy=256, seed=0)
+    batch = torch.from_numpy(np.stack([np.rint(seq.render(i)).clip(0, 255) for i in range(16)])
+                             .astype(np.float32)).cuda()
+    b, n_rows = (g2_bank(), 6) if order == 2 else (g4_bank(), 10)
+    fn, plain = (cf.g2_maps, cf.g2_maps_plain) if order == 2 else (cf.g4_maps, cf.g4_maps_plain)
+    tail = "G2MapsTail" if order == 2 else "G4MapsTail"
+    radius = (b.xtaps.shape[1] - 1) // 2
+    want = plain(batch, b.xtaps, b.ytaps, out_dtype=torch.bfloat16)
+    for (th, tw, strip, sw), log, path in builds:
+        _load(path, f"cvs_maps_g{order}")
+        call = lambda: fn(batch, b.xtaps, b.ytaps, out_dtype=torch.bfloat16)  # noqa: E731
+        same = all(torch.equal(g, w) for g, w in zip(call(), want))
+        regs, _ = _usage(log, rf"maps_kernelILi{radius}E\S*{tail}")
+        _, spills_any = _usage(log, r"maps_kernel")
+        smem = _bank_smem(th, tw, radius, n_rows)
+        yield same, dict(
+            tile=f"{th}x{tw}", strip_h=strip, row_strip=sw, registers=regs,
+            spill_bytes_any_radius=spills_any,
+            smem_bytes=smem, blocks_per_sm=_blocks_per_sm(regs, smem),
+            tiles=16 * -(-512 // th) * -(-512 // tw), halo_factor=(th + 2 * radius) / th,
+            device_ms=_device_ms(call, "maps_kernel"),
+        )
+
+
+def ptxas_report() -> int:
+    """Build the library's sources with -Xptxas -v; one JSON line per kernel."""
+    out_dir = os.path.join(kernels.BUILD_DIR, "sweep")
+    os.makedirs(out_dir, exist_ok=True)
+    units = [s for s in kernels._sources() if s.endswith(".cu")]
+    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "--ptxas-options=-v", "-c", "-o",
+                               os.path.join(out_dir, os.path.basename(s) + ".o"), s],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for s in units]
+    spilling, n = 0, 0
+    for src, proc in zip(units, procs):
+        _, log = proc.communicate()
+        if proc.returncode != 0:
+            print(f"FAIL: nvcc for {src}:\n{log}", file=sys.stderr)
+            return 1
+        usage = ptxas_usage(log)
+        for (_, regs, spills), name in zip(usage, _demangle([u[0] for u in usage])):
+            print(json.dumps(dict(source=os.path.basename(src), kernel=name, registers=regs,
+                                  spill_bytes=spills)), flush=True)
+            spilling += spills > 0
+            n += 1
+    print(json.dumps(dict(instantiations=n, spilling=spilling)))
+    return 0
+
+
+def main(argv=None) -> int:
+    import torch
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tiles", default=DEFAULT_TILES)
+    ap.add_argument("--kernel", choices=("c", "a", "e", "e4", "ptxas"), default="c")
+    ap.add_argument("--tiles", default=None)
+    ap.add_argument("--strips", default="4,8", help="e, e4: column-strip heights")
+    ap.add_argument("--row-strips", default="2", help="a, e, e4: row-strip widths")
     ap.add_argument("--nms-radius", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA GPU", file=sys.stderr)
         return 1
-    tiles = [tuple(int(v) for v in t.split("x")) for t in args.tiles.split(",")]
-    builds = [(t, *_build(*t)) for t in tiles]
-
-    bank = g2_bank()
-    frame = torch.from_numpy(PlanesSequence(n_frames=1, seed=0).render(0)).cuda()[None]
-    levels = [frame.contiguous()]
-    for _ in range(4):
-        levels.append(cf.pyr_down_plain(levels[-1]).contiguous())
-    want = [cf.g2_features_full_plain(lv, bank.xtaps, bank.ytaps, threshold=1.0,
-                                      nms_radius=args.nms_radius) for lv in levels]
-    props = torch.cuda.get_device_properties(0)
-    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-    radius = (bank.xtaps.shape[1] - 1) // 2
-    ok = True
-    for (th, tw), proc, path in builds:
+    if args.kernel == "ptxas":
+        return ptxas_report()
+    tiles = [tuple(int(v) for v in t.split("x"))
+             for t in (args.tiles or DEFAULT_TILES[args.kernel]).split(",")]
+    macros = SOURCES[args.kernel][1]
+    strips = [int(s) for s in args.strips.split(",")] if macros[2] else [None]
+    rows = [int(s) for s in args.row_strips.split(",")] if macros[3] else [None]
+    shapes = [(th, tw, s, sw) for th, tw in tiles for s in strips for sw in rows
+              if (s is None or th % s == 0) and (sw is None or tw % sw == 0)]
+    procs = []
+    for shape in shapes:
+        defines = {m: v for m, v in zip(macros, shape) if v is not None}
+        procs.append(_build(args.kernel, "x".join(str(v) for v in shape if v is not None), defines))
+    builds = []
+    for shape, (proc, path) in zip(shapes, procs):
         _, log = proc.communicate()
         if proc.returncode != 0:
-            print(f"FAIL: nvcc for {th}x{tw}:\n{log}", file=sys.stderr)
+            print(f"FAIL: nvcc for {shape}:\n{log}", file=sys.stderr)
             return 1
-        lib = ctypes.CDLL(path)
-        fn = lib.cvs_g2_features
-        fn.argtypes, fn.restype = kernels._SIGNATURES["cvs_g2_features"], ctypes.c_int
-        lib.cvs_error_string.argtypes, lib.cvs_error_string.restype = (ctypes.c_int,), ctypes.c_char_p
-        kernels._lib = lib  # the wrapper launches this build
-        call = lambda: cf.g2_features_levels(levels, bank.xtaps, bank.ytaps,  # noqa: E731
-                                             threshold=1.0, nms_radius=args.nms_radius)
-        got = call()
-        same = all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
-        ok &= same
-        # the kernel's shared-memory layout (g2_features.cu Layout), 6 row passes
-        hs = args.nms_radius + 1
-        sh, sw = th + 2 * hs, tw + 2 * hs
-        swr, shc = -(-sw // 8) * 8, -(-sh // 8) * 8
-        ih, iw, rs = shc + 2 * radius, (swr + 2 * radius) | 1, swr | 1
-        smem = 4 * (ih * iw + 6 * ih * rs + sh * sw)
-        regs, spills = _ptxas(log, radius)
-        n_tiles = sum(-(-lv.shape[-1] // tw) * -(-lv.shape[-2] // th) for lv in levels)
-        print(json.dumps(dict(
-            tile=f"{th}x{tw}", bit_equal=same, registers=regs, spill_bytes=spills,
-            smem_bytes=smem, blocks_per_sm=min(2, smem_sm // (smem + 1024)), tiles=n_tiles,
-            halo_factor=(ih * swr + shc * sw) / (2 * th * tw), device_ms=_device_ms(call),
-            card=torch.cuda.get_device_name(0),
-        )), flush=True)
-    kernels._lib = None
+        builds.append((shape, log, path))
+    sweep = {"c": lambda b: sweep_c(b, args.nms_radius), "a": sweep_a,
+             "e": lambda b: sweep_maps(b, 2), "e4": lambda b: sweep_maps(b, 4)}[args.kernel]
+    ok, card = True, torch.cuda.get_device_name(0)
+    try:
+        for same, rec in sweep(builds):
+            ok &= same
+            print(json.dumps(dict(kernel=args.kernel, **rec, bit_equal=same, card=card)), flush=True)
+    finally:
+        kernels._lib = None
     return 0 if ok else 1
 
 

@@ -9,10 +9,11 @@ The port's counterpart of cvsteer_tpu.ops.pallas_frontend:
   ``kernels/csrc/g2_features.cu``) — the detector maps
   ``(p3, dy, dx, ct, st, basis)`` of every level of a pyramid in one launch,
   or of one image;
-- :func:`g2_feature_maps` (kernel E′, the feature tail of kernel E's
-  template) — image -> ``(score, ct, st)``;
-- :func:`g2_maps` / :func:`g4_maps` (kernel E, ``kernels/csrc/g2_maps.cu``,
-  one fused kernel per filter order) — image -> the three output maps
+- :func:`g2_feature_maps` (kernel E′, ``kernels/csrc/g2_feature_maps.cu``,
+  the feature tail on kernel E's template) — image -> ``(score, ct, st)``;
+- :func:`g2_maps` / :func:`g4_maps` (kernels E and E4,
+  ``kernels/csrc/g2_maps.cu`` and ``g4_maps.cu``: one template,
+  ``maps.cuh``, one tail per filter order) — image -> the three output maps
   ``(edges, lines_dark, lines_bright)``, the basis never leaving registers;
 - :func:`filter_bank_diff` (autograd.Function): forward kernel A, backward
   :func:`filter_bank_adjoint` (kernel F, ``kernels/csrc/filter_bank_adj.cu``).
@@ -478,7 +479,7 @@ def g2_maps(image: torch.Tensor, xtaps, ytaps, out_dtype=torch.float32):
 def g4_maps(image: torch.Tensor, xtaps, ytaps, out_dtype=torch.float32):
     """Fused G4/H4 front-end: the 11-filter bank, then the second-harmonic
     quadratic form (33 products) and the 4th/5th-degree steering tail
-    (kernel E, G4 instantiation)."""
+    (kernel E4, the G4 instantiation of kernel E's template)."""
     return _maps(image, xtaps, ytaps, out_dtype, order=4)
 
 

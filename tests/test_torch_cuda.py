@@ -43,7 +43,7 @@ def test_torch_cuda_kernels_match_plain(cuda, shape):
     bank = taps.g2h2_bank()
     before = kernels.launch_counts()
     k, p = cf.filter_bank(img, bank.xtaps, bank.ytaps), filter_bank_plain(img, bank.xtaps, bank.ytaps)
-    assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+    assert k.shape == p.shape and torch.equal(k, p)
     k, p = cf.pyr_down(img), cf.pyr_down_plain(img)
     assert (k - p).abs().max().item() <= 255 * 3e-5 + 1e-3
     if min(shape[-2:]) > 6:
@@ -62,6 +62,82 @@ def test_torch_cuda_kernels_match_plain(cuda, shape):
     after = kernels.launch_counts()
     for name in ("filter_bank", "pyr_down"):
         assert after[name] > before[name]
+
+
+#: levels narrower than the taps (kernels A and E)
+NARROW = [(1, 1), (2, 2), (3, 5), (2, 5, 9)]
+
+
+def _random_bank(K, R, seed):
+    """K random x- and y-tap vectors of 2R + 1 taps; with K > 1 the last
+    x-tap vector is a bit copy of the second, so two filters share a row
+    pass (the kernels' row_of map)."""
+    rng = np.random.default_rng(seed)
+    xt = rng.standard_normal((K, 2 * R + 1)).astype(np.float32)
+    yt = rng.standard_normal((K, 2 * R + 1)).astype(np.float32)
+    if K > 1:
+        xt[-1] = xt[1]
+    return xt, yt
+
+
+def _taps(bank):
+    return bank.xtaps, bank.ytaps
+
+
+@pytest.mark.parametrize("K", [1, 7, 11])
+@pytest.mark.parametrize("R", range(7))
+def test_torch_cuda_filter_bank_radii_bit_equal(cuda, R, K):
+    """Kernel A at every radius it takes (T = 2R + 1 <= 13) with 1, 7 and 11
+    filters, bit for bit against the plain bank, down to levels narrower
+    than the taps: the G2/H2 and G4/H4 banks at that width (each has two
+    filters with one x-tap vector), blur5, and random banks."""
+    banks = [_random_bank(K, R, seed=R)]
+    if K == 7:
+        banks.append(_taps(taps.g2h2_bank(width=R)))
+    if K == 11:
+        banks.append(_taps(taps.g4h4_bank(width=R)))
+    if K == 1 and R == 2:
+        banks.append((cf._BINOMIAL5[None], cf._BINOMIAL5[None]))
+    for i, shape in enumerate([(1, 480, 640), (2, 61, 83), (3, 2)] + NARROW):
+        img = torch.from_numpy(_texture(shape, seed=i)).to(cuda)
+        for xt, yt in banks:
+            before = kernels.launch_counts()["filter_bank"]
+            got = cf.filter_bank(img, xt, yt)
+            assert kernels.launch_counts()["filter_bank"] == before + 1
+            want = filter_bank_plain(img, xt, yt)
+            assert got.shape == want.shape == tuple(shape[:-2]) + (K,) + tuple(shape[-2:])
+            assert torch.equal(got, want), (shape, R, K)
+
+
+@pytest.mark.parametrize("R", range(9))
+def test_torch_cuda_maps_radii_bit_equal(cuda, R):
+    """Kernel E's template at every radius it takes (T = 2R + 1 <= 17): E
+    and E4 with float32 and bfloat16 maps and E′, each bit for bit against
+    its plain version, with the G2/H2 and G4/H4 banks at that width and with
+    random banks, on tiles cut by both edges and levels narrower than the
+    taps."""
+    g2 = [_taps(taps.g2h2_bank(width=R)), _random_bank(7, R, seed=10 + R)]
+    g4 = [_taps(taps.g4h4_bank(width=R)), _random_bank(11, R, seed=20 + R)]
+    for i, shape in enumerate([(2, 70, 150)] + NARROW):
+        img = torch.from_numpy(_texture(shape, seed=30 + i)).to(cuda)
+        before = kernels.launch_counts()
+        for fn, plain, banks in ((cf.g2_maps, cf.g2_maps_plain, g2), (cf.g4_maps, cf.g4_maps_plain, g4)):
+            for xt, yt in banks:
+                for dtype in (torch.float32, torch.bfloat16):
+                    got = fn(img, xt, yt, out_dtype=dtype)
+                    want = plain(img, xt, yt, out_dtype=dtype)
+                    for g, w in zip(got, want):
+                        assert g.dtype == dtype and g.shape == img.shape
+                        assert torch.equal(g, w), (fn.__name__, shape, R, dtype)
+        for xt, yt in g2:
+            got = cf.g2_feature_maps(img, xt, yt)
+            want = cf.g2_feature_maps_plain(filter_bank_plain(img, xt, yt))
+            for g, w in zip(got, want):
+                assert g.shape == img.shape and torch.equal(g, w), ("g2_feature_maps", shape, R)
+        after = kernels.launch_counts()
+        assert after["g2_maps"] == before["g2_maps"] + 4
+        assert after["g4_maps"] == before["g4_maps"] + 4
+        assert after["g2_feature_maps"] == before["g2_feature_maps"] + 2
 
 
 def _pyramid(cuda, shape, levels, seed=6):
@@ -136,7 +212,8 @@ def test_torch_cuda_sample_patches_levels_bit_equal(cuda, S):
         assert torch.equal(one, got[:, k0:k1])
 
 
-@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (2, 61, 83), (3, 5)])
+@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (2, 61, 83), (3, 5), (1, 1), (2, 2),
+                                   (2, 5, 9)])
 def test_torch_cuda_g2_feature_maps_bit_equal(cuda, shape):
     """Kernel E′ against its plain version (the plain bank, then the feature
     tail), bit for bit."""
@@ -150,11 +227,12 @@ def test_torch_cuda_g2_feature_maps_bit_equal(cuda, shape):
         assert a.shape == img.shape and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (1, 185, 256), (2, 5, 9)])
+@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 480, 640), (1, 185, 256), (2, 5, 9), (1, 1),
+                                   (2, 2), (3, 5)])
 def test_torch_cuda_maps_kernels_match_plain(cuda, shape):
-    """Kernel E (G2, float32 and bfloat16 maps) and its G4 instantiation
-    against their plain versions on the same card: fp32 arithmetic in the
-    same order, bar 1e-5 of each map's scale."""
+    """Kernel E (G2, float32 and bfloat16 maps) and E4, its G4
+    instantiation, against their plain versions on the same card: fp32
+    arithmetic in the same order, so bit for bit."""
     img = torch.from_numpy(_texture(shape)).to(cuda)
     before = kernels.launch_counts()
     for fn, plain, bank in ((cf.g2_maps, cf.g2_maps_plain, taps.g2h2_bank()),
@@ -164,7 +242,7 @@ def test_torch_cuda_maps_kernels_match_plain(cuda, shape):
             want = plain(img, bank.xtaps, bank.ytaps, out_dtype=dtype)
             for g, w in zip(got, want):
                 assert g.dtype == dtype and g.shape == img.shape
-                assert (g.float() - w.float()).abs().max().item() <= 1e-5 * max(w.float().abs().max().item(), 1e-30)
+                assert torch.equal(g, w)
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after["g2_maps"] == before["g2_maps"] + 2
