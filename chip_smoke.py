@@ -43,8 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
              g4_basis against autograd through the plain bank; kernels A, B
              and F launched (A's launch count in the JSON line is this
              phase's).
-
-Each path phase (5-7) sets the launch counts to 0 just before it and reads
+8. probes  — each module of cvsteer_tpu_torch.probes (the port of the TPU
+             probe scripts) measures once at its script's shapes (the
+             probes' paths); then kernels G (rows, patches), S and V bit for
+             bit and M within its stated tolerance against their plain
+             versions, at those shapes and ragged ones, timed as in phase 4.
+Each path phase (5-8) sets the launch counts to 0 just before it and reads
 them just after. The line before the last is the per-kernel JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -55,7 +59,6 @@ import argparse
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -74,6 +77,7 @@ GOLDEN_L1 = 2.5  # mean L1 vs the decoded goldens (tests/test_golden.py, no reco
 # and its flops over the second.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores (kernel M)
 
 CLI_FRAMES, CLI_HW, CLI_BATCH = 64, (512, 512), 16
 MAPS = ("edges", "lines_dark", "lines_bright")
@@ -82,6 +86,8 @@ PATH_KERNELS = {  # phase -> the kernels its path must launch
     "cli_g2": ("g2_maps",),
     "cli_g4": ("g4_maps",),
     "pyramid": ("filter_bank", "pyr_down", "filter_bank_adj"),
+    "probes": ("probe_gather_rows", "probe_gather_patches", "probe_maps_stages",
+               "probe_maps_variants", "probe_maps_mma"),
 }
 VO_LAUNCHES_PER_FRAME = {  # the VO front-end: B per pyramid step, one C and one D per frame
     "filter_bank": 0, "pyr_down": 4, "g2_features_full": 1, "desc_sample": 1,
@@ -90,6 +96,7 @@ LAUNCHES_FROM = {  # kernel -> the phase whose launch count the JSON line report
     "filter_bank": "pyramid", "pyr_down": "vo", "g2_features_full": "vo", "desc_sample": "vo",
     "g2_maps": "cli_g2", "g4_maps": "cli_g4", "filter_bank_adj": "pyramid",
     "g2_feature_maps": None,  # E′: no path in either package calls it
+    **{k: "probes" for k in PATH_KERNELS["probes"]},
 }
 VO_PROFILE_WARM, VO_PROFILE_FRAMES = 10, 5
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -101,118 +108,31 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def call_ms(fn, reps: int = 25) -> float:
-    """What one call of ``fn`` costs a caller that waits for it: CUDA events
-    around one call on an idle card, median of ``reps`` after warm-up, in ms.
-    It includes the call's host work (wrapper checks, allocation, ctypes),
-    so it is not a kernel time."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def _named(kernel: str, name: str) -> bool:
-    """Whether a device event's (demangled or mangled) kernel name is the
-    CUDA function ``name``."""
-    return bool(re.search(rf"(?<![A-Za-z0-9_]){name}(?=[<(])", kernel)) or f"{len(name)}{name}E" in kernel
-
-
-def device_time_attr() -> str:
-    """The FunctionEvent attribute this torch names a device event's time
-    under (``device_time_total``; ``cuda_time_total`` in older releases)."""
-    from torch.autograd.profiler_util import FunctionEvent
-
-    return "device_time_total" if hasattr(FunctionEvent, "device_time_total") else "cuda_time_total"
-
-
-def _device_events(fn, names, reps: int):
-    """(summed device time in us, event count) of ``reps`` calls of ``fn``
-    inside torch.profiler: the kernels of the CUDA functions ``names``, or
-    with no names every device kernel, memset and copy; the profiler's own
-    annotations never."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    attr = device_time_attr()
-    total_us, n = 0.0, 0
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
-            continue
-        if names and not any(_named(evt.name, nm) for nm in names):
-            continue
-        total_us += getattr(evt, attr)
-        n += 1
-    return total_us, n
-
-
-def device_ms(fn, names=(), per_call=None, reps: int = 25, tries: int = 5):
-    """Device time of one call of ``fn`` in ms, from ``reps`` calls after
-    warm-up inside torch.profiler. No L2 flush: on every path a kernel reads
-    what the one before it has just written.
-
-    A hand-written kernel (``names`` and ``per_call``, the CUDA launches
-    one call makes): the mean duration of its kernel events times
-    ``per_call``. The profiler now and then misses a device event of a
-    window, so a window with fewer than ``per_call * reps`` events is taken
-    again, up to ``tries`` times, and the fullest one is used. Without
-    names (a plain version or a library call): the device time of every
-    event in the window over ``reps``. Returns (ms, events seen per call);
-    raises when the profiler reports no device time."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    if not names:
-        total_us, n = _device_events(fn, (), reps)
-        if n == 0 or total_us <= 0.0:
-            raise RuntimeError("torch.profiler reported no device time for the call")
-        return total_us / reps / 1e3, n / reps
-    best = (0.0, 0)
-    for _ in range(tries):
-        best = max(best, _device_events(fn, names, reps), key=lambda r: r[1])
-        if best[1] >= per_call * reps:
-            break
-    total_us, n = best
-    if n == 0 or total_us <= 0.0:
-        raise RuntimeError(f"torch.profiler reported no device time for {names}")
-    return total_us / n * per_call / 1e3, n / reps
-
-
-def timings(kernel, names, per_call, plain, library=None) -> dict:
+def timings(kernel, names, per_call, plain, library=None, plain_reps=25) -> dict:
     """Device and call times (ms) of a kernel's wrapper, its plain version
     and, where there is one, the one-call library yardstick. Each of
     ``kernel``, ``plain`` and ``library`` is a list of calls that make up
     one unit of work (a frame's levels, a batch); ``per_call`` is the
     kernel launches of one call (the CUDA functions ``names``). A call time
     is the sum of the calls' medians, a device time that of the calls
-    together."""
+    together. ``plain_reps``: calls per window of the plain version (its
+    hundreds of small kernels per call make the profiler's windows slow).
+    An events-seen count of 0 marks a device time that device_ms took with
+    CUDA events because the profiler lost every window."""
+    from cvsteer_tpu_torch.utils.profiling import call_ms, device_ms
+
     run = lambda calls: (lambda: [c() for c in calls])  # noqa: E731
     dev, seen = device_ms(run(kernel), names, per_call * len(kernel))
+    plain_dev, plain_seen = device_ms(run(plain), reps=plain_reps)
     t = dict(device_ms=dev, device_launches_per_unit=per_call * len(kernel),
              device_events_seen_per_unit=seen, call_ms=sum(map(call_ms, kernel)),
-             plain_device_ms=device_ms(run(plain))[0], plain_call_ms=sum(map(call_ms, plain)),
+             plain_device_ms=plain_dev, plain_device_events_seen_per_unit=plain_seen,
+             plain_call_ms=sum(call_ms(c, plain_reps) for c in plain),
              library_device_ms=None, library_call_ms=None)
     if library is not None:
-        t.update(library_device_ms=device_ms(run(library))[0], library_call_ms=sum(map(call_ms, library)))
+        lib_dev, lib_seen = device_ms(run(library))
+        t.update(library_device_ms=lib_dev, library_device_events_seen_per_unit=lib_seen,
+                 library_call_ms=sum(map(call_ms, library)))
     # the contract's fields: kernel, plain and library times are device times
     t.update(ms=t["device_ms"], plain_ms=t["plain_device_ms"], library_ms=t["library_device_ms"])
     return t
@@ -312,6 +232,25 @@ def render_inputs(seed: int, workdir: str):
     return frame, np.stack(frames_u8).astype(np.float32), paths, fish
 
 
+def add_record(records, name, src, replaces, err, good, times, bound, **extra) -> bool:
+    """Print one kernel's check and times and append its JSON record;
+    returns whether it passed."""
+    ms = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
+    b = bound.fields()
+    print(f"kernel {name}: max_abs_err {err:.3e} {'ok' if good else 'FAILED'}; device ms: "
+          f"kernel {ms(times['device_ms'])} ({times['device_launches_per_unit']:g} launches, "
+          f"{times['device_events_seen_per_unit']:g} seen), "
+          f"plain {ms(times['plain_device_ms'])}, library {ms(times['library_device_ms'])}; "
+          f"call ms: kernel {ms(times['call_ms'])}, plain {ms(times['plain_call_ms'])}, "
+          f"library {ms(times['library_call_ms'])}; bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) {extra if extra else ''}")
+    records.append(dict(
+        name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err,
+        **times, **b, **extra,
+    ))
+    return bool(good)
+
+
 def check_kernels(frame, frames512, fish):
     """Phase 4: each kernel against its plain version at its path's shapes.
     Returns (records, ok)."""
@@ -326,6 +265,7 @@ def check_kernels(frame, frames512, fish):
     from cvsteer_tpu_torch.ops import cuda_desc as cd
     from cvsteer_tpu_torch.ops import cuda_frontend as cf
     from cvsteer_tpu_torch.utils.precision import precise
+    from cvsteer_tpu_torch.utils.profiling import call_ms, device_ms
 
     bank = g2_bank()
     xt, yt = bank.xtaps, bank.ytaps
@@ -336,22 +276,9 @@ def check_kernels(frame, frames512, fish):
     shapes = [tuple(l.shape[-2:]) for l in levels]
     records, ok = [], True
 
-    def record(name, src, replaces, err, good, times, bound, **extra):
+    def record(*args, **extra):
         nonlocal ok
-        ok &= bool(good)
-        ms = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
-        b = bound.fields()
-        print(f"kernel {name}: max_abs_err {err:.3e} {'ok' if good else 'FAILED'}; device ms: "
-              f"kernel {ms(times['device_ms'])} ({times['device_launches_per_unit']:g} launches, "
-              f"{times['device_events_seen_per_unit']:g} seen), "
-              f"plain {ms(times['plain_device_ms'])}, library {ms(times['library_device_ms'])}; "
-              f"call ms: kernel {ms(times['call_ms'])}, plain {ms(times['plain_call_ms'])}, "
-              f"library {ms(times['library_call_ms'])}; bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}) {extra if extra else ''}")
-        records.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err,
-            **times, **b, **extra,
-        ))
+        ok &= add_record(records, *args, **extra)
 
     def conv_bank(taps_x, taps_y, stride=1):
         """nn.Conv2d(padding_mode="reflect") with the outer-product weights:
@@ -657,6 +584,7 @@ def profile_vo(seed: int) -> dict:
     from cvsteer_tpu_torch.io.render import PlanesSequence
     from cvsteer_tpu_torch.slam.vo import VOConfig, init_vo, process_image
     from cvsteer_tpu_torch.utils.metrics import StepTimer
+    from cvsteer_tpu_torch.utils.profiling import device_time_attr, kernel_named
 
     cfg = VOConfig()
     K = cfg.intrinsics
@@ -687,7 +615,7 @@ def profile_vo(seed: int) -> dict:
             end = b
     names = {"pyr_down": "pyr_down_kernel", "g2_features_full": "g2_features_kernel",
              "desc_sample": "desc_sample_kernel"}
-    per_kernel = {k: sum(getattr(e, attr) for e in dev if _named(e.name, v)) / 1e3 / VO_PROFILE_FRAMES
+    per_kernel = {k: sum(getattr(e, attr) for e in dev if kernel_named(e.name, v)) / 1e3 / VO_PROFILE_FRAMES
                   for k, v in names.items()}
     return dict(
         kernels_per_frame=(len(dev) - len(copies)) / VO_PROFILE_FRAMES,
@@ -836,6 +764,221 @@ def run_pyramid(frame):
     return launches, checks
 
 
+PROBES = ("probe_dma_gather", "profile_v2_stages", "profile_frontend", "probe_r3_variants",
+          "profile_variants")
+PROBE_REPS = 10  # calls per device-time window in the probes' own tables
+PLAIN_REPS = 5  # calls per window of the probe kernels' plain versions
+
+
+def _fmt(v):
+    return round(v, 4) if isinstance(v, float) else v
+
+
+def run_probes():
+    """Phase 8, the probes' paths: each module of cvsteer_tpu_torch.probes
+    measures once at its script's shapes; prints its table's rows."""
+    import importlib
+
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+
+    mods = [importlib.import_module(f"cvsteer_tpu_torch.probes.{n}") for n in PROBES]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = {n: m.measure("cuda", reps=PROBE_REPS) for n, m in zip(PROBES, mods)}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name, res in results.items():
+        if isinstance(res, dict):
+            res = {k: ([[_fmt(x) for x in r] for r in v] if isinstance(v, list) else _fmt(v))
+                   for k, v in res.items()}
+        else:
+            res = [({k: _fmt(x) for k, x in r.items()} if isinstance(r, dict) else [_fmt(x) for x in r])
+                   for r in res]
+        print(f"probe {name}: {json.dumps(res)}")
+    print(f"probes: {dt:.1f} s; launches {({k: launches[k] for k in PATH_KERNELS['probes']})}")
+    checks = {"probes: kernels G, S, V, M launched": all(launches[k] > 0 for k in PATH_KERNELS["probes"])}
+    return launches, checks
+
+
+def check_probe_kernels():
+    """Phase 8, the kernels: G, S and V bit for bit against their plain
+    versions, M within its stated tolerance (ops.cuda_probes.mma_agreement),
+    at the probes' shapes and ragged ones; timed like phase 4, each over the
+    calls its probe makes. Returns (records, ok)."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import probes
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+    from cvsteer_tpu_torch.ops import cuda_probes as cp
+    from cvsteer_tpu_torch.probes import probe_dma_gather as pdg
+    from cvsteer_tpu_torch.probes import probe_r3_variants as r3
+
+    records, ok = [], True
+    xt, yt = probes.g2_taps()
+    as_bytes = lambda t: t.contiguous().view(torch.uint8)  # noqa: E731
+
+    def same(got, want):
+        return all(torch.equal(as_bytes(a), as_bytes(b)) for a, b in zip(got, want))
+
+    def abs_err(got, want):
+        return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+
+    # G, rows: the probe's 32 B and 512 B rows; a ragged table of 14 B rows
+    # with indices at and past its ends
+    a = pdg.inputs("cuda")
+    calls = [(a["tbl"], a["idx"]), (a["tbl512"], a["idx512"])]
+    odd = a["tbl"][:1000, :7].contiguous()
+    odd_idx = torch.tensor([0, 999, 1000, 5000, -2], dtype=torch.int32, device="cuda")
+    got = [cp.gather_rows(t, i) for t, i in calls + [(odd, odd_idx)]]
+    want = [cp.gather_rows_plain(t, i) for t, i in calls + [(odd, odd_idx)]]
+    # the bytes this run's data needs: the distinct rows it reads, the
+    # indices, the rows it writes
+    bound = Bound()
+    for t, i in calls:
+        row_bytes = t[0].numel() * t.element_size()
+        distinct = torch.unique(i.long().clamp(0, t.shape[0] - 1)).numel()
+        bound.add(distinct * row_bytes + i.numel() * (4 + row_bytes), 0)
+    ok &= add_record(
+        records, "probe_gather_rows", "cvsteer_tpu_torch/kernels/csrc/probe_gather.cu",
+        "scripts/probe_dma_gather.py:36 dma_gather_rows (call :72)",
+        abs_err(got, want), same(got, want),
+        timings([lambda t=t, i=i: cp.gather_rows(t, i) for t, i in calls], ("gather_rows_kernel",), 1,
+                [lambda t=t, i=i: cp.gather_rows_plain(t, i) for t, i in calls],
+                [lambda t=t, i=i: torch.index_select(t, 0, i) for t, i in calls]),
+        bound, bit_equal=same(got, want), timed_rows=[i.numel() for _, i in calls],
+        library="torch.index_select",
+    )
+
+    # G, patches: the probe's 2,048 16 x 256 bf16 patches; starts past the
+    # edges and unaligned
+    img, ys, xs = a["img"], a["ys"], a["xs"]
+    ys2, xs2 = ys.clone(), xs.clone()
+    ys2[:3] = torch.tensor([0, 470, 900], dtype=torch.int32)
+    xs2[:3] = torch.tensor([5117, 3, 4861], dtype=torch.int32)
+    got = [cp.gather_patches(img, ys, xs), cp.gather_patches(img, ys2, xs2)]
+    want = [cp.gather_patches_plain(img, ys, xs), cp.gather_patches_plain(img, ys2, xs2)]
+    # the bytes this run's data needs: the image pixels the windows cover
+    # (they overlap), the starts, the patches it writes
+    covered = torch.zeros(img.shape, dtype=torch.bool, device="cuda")
+    dy = torch.arange(pdg.PATCH_H, device="cuda")[None, :, None]
+    dx = torch.arange(pdg.PATCH_W, device="cuda")[None, None, :]
+    covered[ys.long()[:, None, None] + dy, xs.long()[:, None, None] + dx] = True
+    bound = Bound()
+    bound.add((int(covered.sum()) + pdg.PATCH_H * pdg.PATCH_W * ys.numel()) * img.element_size()
+              + 8 * ys.numel(), 0)
+    ok &= add_record(
+        records, "probe_gather_patches", "cvsteer_tpu_torch/kernels/csrc/probe_gather.cu",
+        "scripts/probe_dma_gather.py:87 dma_gather_patches (call :117)",
+        abs_err(got, want), same(got, want),
+        timings([lambda: cp.gather_patches(img, ys, xs)], ("gather_patches_kernel",), 1,
+                [lambda: cp.gather_patches_plain(img, ys, xs)],
+                [lambda: pdg.patches_by_indexing(img, ys, xs)]),
+        bound, bit_equal=same(got, want), patches=ys.numel(), library="advanced indexing",
+    )
+
+    # S: every stage, both outputs, at the probes' 16x512x512 and 2x61x83;
+    # timed: the five v2 stages (profile_v2_stages' calls)
+    batch = probes.uniform_batch(16, 512, "cuda")
+    ragged = probes.uniform_batch(2, 83, "cuda")[:, :61].contiguous()
+    err, bits = 0.0, True
+    for x in (batch, ragged):
+        for outputs in cp.OUTPUTS:
+            for stage in cp.STAGES:
+                got = cp.maps_stage(x, xt, yt, stage, outputs)
+                want = cp.maps_stage_plain(x, xt, yt, stage, outputs)
+                err, bits = max(err, abs_err(got, want)), bits and same(got, want)
+    px = batch.numel()
+    bank = bank_flops(px, xt, yt)
+    rows = px * sum(pass_flops(xt[k]) for k in distinct_rows(xt))
+    bound = Bound()
+    for flops in (0, rows, bank, bank + 30 * px, bank + maps_tail_flops(2) * px):
+        bound.add(16 * px, flops)
+    ok &= add_record(
+        records, "probe_maps_stages", "cvsteer_tpu_torch/kernels/csrc/probe_maps_stages.cu",
+        "scripts/profile_v2_stages.py:36 stage_kernel (build :126, call :149) + "
+        "scripts/profile_frontend.py:43 _stage_kernel (make_variant :137, call :159)",
+        err, bits,
+        timings([lambda s=s: cp.maps_stage(batch, xt, yt, s, "v2") for s in cp.STAGES],
+                ("maps_kernel", "stage_rows_kernel"), 1,
+                [lambda s=s: cp.maps_stage_plain(batch, xt, yt, s, "v2") for s in cp.STAGES],
+                plain_reps=PLAIN_REPS),
+        bound, bit_equal=bits, timed_shape=list(batch.shape), units="the 5 v2 stages",
+    )
+
+    # V: every case on the r3 probe's u8-valued batch and on the ragged one;
+    # sd against kernel E's fp32 maps; timed: the r3 probe's nine cases
+    u8 = probes.uniform_batch(16, 512, "cuda", integers=True)
+    err, bits = 0.0, True
+    for x in (u8, ragged):
+        for tail, carry, tile in sorted(cp.VARIANT_CASES):
+            got = cp.maps_variant(x, xt, yt, tail, carry=carry, tile_h=tile)
+            want = cp.maps_variant_plain(x, xt, yt, tail)
+            err, bits = max(err, abs_err(got, want)), bits and same(got, want)
+    sd_is_e = same(cp.maps_variant(u8, xt, yt, "sd"), cf.g2_maps(u8, xt, yt))
+    cases = [(r3.variant_args(v), tile) for tile, v in r3.CASES]
+    bound = Bound()
+    for _ in cases:
+        bound.add(16 * px, bank + maps_tail_flops(2) * px)
+    ok &= add_record(
+        records, "probe_maps_variants", "cvsteer_tpu_torch/kernels/csrc/probe_maps_variants.cu",
+        "scripts/probe_r3_variants.py:49 make_kernel (call :188) + scripts/profile_variants.py:106 "
+        "_kernel_baseline, :206 _kernel_factored (build :232, call :304)",
+        err, bits and sd_is_e,
+        timings([lambda c=c, t=t: cp.maps_variant(u8, xt, yt, c[0], carry=c[1], tile_h=t) for c, t in cases],
+                ("maps_kernel", "carry_kernel"), 1,
+                [lambda c=c: cp.maps_variant_plain(u8, xt, yt, c[0]) for c, _ in cases],
+                plain_reps=PLAIN_REPS),
+        bound, bit_equal=bits, sd_equals_kernel_e=sd_is_e, timed_shape=list(u8.shape),
+        units="probe_r3_variants' 9 cases",
+    )
+
+    # M: every case at 16x512x512 and 2x61x83 within its tolerance; timed:
+    # the six M calls of profile_variants and profile_frontend. Beside the
+    # bytes, the least tensor-core time of the banded products: per 16x8
+    # outputs of a filter two k-steps of 16 x 8 x 16 multiply-adds, three
+    # products for bf16x3 and one for bf16x1, two more per 16x8 row-pass
+    # outputs of the 16 padded x-tap rows for rowmxu
+    err, good, worst = 0.0, True, {}
+    for x in (batch, ragged):
+        for stage, row, col in sorted(cp.MMA_CASES):
+            got = cp.maps_mma(x, xt, yt, stage, row, col)
+            want = cp.maps_mma_plain(x, xt, yt, stage, row, col)
+            c3 = cp.maps_mma_plain(x, xt, yt, "coeff", row, col)[1] if stage == "full" else None
+            res = cp.mma_agreement(got, want, stage, row, c3)
+            err, good = max(err, abs_err(got, want)), good and res["ok"]
+            key = f"{stage}/{row}/{col}"
+            if key not in worst or res["max_rel"] > worst[key]["max_rel"]:
+                worst[key] = {k: _fmt(v) for k, v in res.items()}
+    timed = [("row", "fp32", "bf16x3"), ("col", "fp32", "bf16x3"), ("coeff", "fp32", "bf16x3"),
+             ("full", "fp32", "bf16x3"), ("full", "mma", "bf16x3"), ("full", "fp32", "bf16x1")]
+    mma = 16 * 8 * 16 * 2
+    bound, tc_flops = Bound(), 0.0
+    for stage, row, col in timed:
+        bound.add(16 * px, 0)
+        blocks = px / (16 * 8)
+        tc_flops += 0 if stage == "row" else blocks * 7 * 2 * (3 if col == "bf16x3" else 1) * mma
+        tc_flops += px * (64 + 8) / 64 / 8 * 2 * mma if row == "mma" else 0  # 72 rows a 64-row tile
+    ok &= add_record(
+        records, "probe_maps_mma", "cvsteer_tpu_torch/kernels/csrc/probe_maps_mma.cu",
+        "scripts/profile_variants.py:148 _kernel_presplit (call :261) + :118 _kernel_rowmxu "
+        "(call :304) + scripts/profile_frontend.py:244 the Precision.DEFAULT column pass",
+        err, good,
+        timings([lambda c=c: cp.maps_mma(batch, xt, yt, *c) for c in timed], ("mma_maps_kernel",), 1,
+                [lambda c=c: cp.maps_mma_plain(batch, xt, yt, *c) for c in timed],
+                plain_reps=PLAIN_REPS),
+        bound, agreement=worst, timed_shape=list(batch.shape), units="the 6 M calls of the probes",
+        tensor_core_flops=tc_flops, tensor_core_bound_ms=tc_flops / BF16_TC_FLOPS_PER_S * 1e3,
+        tolerance=dict(col_coeff=cp.MMA_TOL, after_rowmxu=cp.MMA_TOL_ROW_MMA, full_max=cp.MMA_FULL_MAX,
+                       full_fraction_beyond_1e5=cp.MMA_FULL_FRACTION, full_firm=cp.MMA_FULL_FIRM),
+    )
+    torch.cuda.synchronize()
+    return records, ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -928,6 +1071,15 @@ def main(argv=None) -> int:
     # 7. pyramid maps and gradients
     launches["pyramid"], pyr_checks = run_pyramid(frame)
     checks.update(pyr_checks)
+
+    # 8. probes: their paths, then their kernels against the plain versions
+    t0 = time.perf_counter()
+    launches["probes"], probe_checks = run_probes()
+    checks.update(probe_checks)
+    probe_records, probe_ok = check_probe_kernels()
+    records += probe_records
+    checks["probes: G, S, V bit-equal, M within its tolerance"] = probe_ok
+    print(f"phase 8 (probes): {time.perf_counter() - t0:.1f} s")
 
     for what, good in checks.items():
         print(f"check {what}: {'ok' if good else 'FAILED'}")

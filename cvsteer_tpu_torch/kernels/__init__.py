@@ -8,10 +8,10 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 loads the cached library. Nothing here runs at import time: the CPU-only
 test suite imports every module of the package.
 
-Every kernel wrapper (ops.cuda_frontend, ops.cuda_desc) adds one to its
-launch count right where it launches its kernel; :func:`launch_counts` and
-:func:`reset_launch_counts` let a run show which kernels its main path went
-through.
+Every kernel wrapper (ops.cuda_frontend, ops.cuda_desc, ops.cuda_probes)
+adds one to its launch count right where it launches its kernel;
+:func:`launch_counts` and :func:`reset_launch_counts` let a run show which
+kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ NVCC_FLAGS = (
 KERNELS = (
     "filter_bank", "pyr_down", "g2_features_full", "desc_sample",
     "g2_maps", "g4_maps", "filter_bank_adj", "g2_feature_maps",
+    # the measurement probes' kernels (ops.cuda_probes)
+    "probe_gather_rows", "probe_gather_patches", "probe_maps_stages",
+    "probe_maps_variants", "probe_maps_mma",
 )
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -151,6 +154,16 @@ _SIGNATURES = {
     "cvs_features_g2": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # grad, scratch, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
     "cvs_filter_bank_adj": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # tbl, idx, out, n_tbl, m, row_bytes, stream
+    "cvs_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
+    # img, ys, xs, out, k, h, w, ph, pw, elem_bytes, stream
+    "cvs_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # in, m0, m1, m2, n, h, w, t, xtaps(host), ytaps(host), stage, outputs, stream
+    "cvs_probe_stages": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P),
+    # ... as cvs_probe_stages up to ytaps, then tail, carry, tile_h, stream
+    "cvs_probe_variants": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P),
+    # ... as cvs_probe_stages up to ytaps, then stage, row_mma, x3, stream
+    "cvs_probe_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -82,23 +82,17 @@ struct BankTile {
     }
 };
 
-// Stages 1 and 2 for the tile at (y0, x0) of one h x w plane, both ending in
-// a barrier. Rows and strips that no output of the plane reads (the tile's
-// part beyond the bottom and right edges) are neither staged nor passed.
+// Stage 2 over the staged rows [y_lo, n_y), ending in a barrier: the row
+// pass of every distinct x-tap vector, n_strips strips of SW outputs a row.
 template <int R, int TH, int TW, int SW>
-__device__ __forceinline__ void bank_rows(float* smem, const float* __restrict__ image, int h,
-                                          int w, int y0, int x0, const SepBank& bank) {
+__device__ __forceinline__ void bank_row_pass(float* smem, int y_lo, int n_y, int n_strips,
+                                              const SepBank& bank) {
     using L = BankTile<R, TH, TW>;
     constexpr int T = L::T;
-    static_assert(TW % SW == 0, "row strips must tile the width");
-    const int n_y = min(L::ih, h - y0 + 2 * R);
-    const int n_strips = ceil_div(min(TW, w - x0), SW);
-    stage_reflect(smem, L::iw, image, h, w, y0 - R, x0 - R, n_y, n_strips * SW + 2 * R);
-    __syncthreads();
-
+    const int rows_y = n_y - y_lo;
     float* rows = smem + L::rows_at;
-    for (int i = threadIdx.x; i < n_y * n_strips; i += kBankThreads) {
-        const int strip = i / n_y, y = i - strip * n_y;
+    for (int i = threadIdx.x; i < rows_y * n_strips; i += kBankThreads) {
+        const int strip = i / rows_y, y = y_lo + i - strip * rows_y;
         const int c0 = strip * SW;
         float win[SW + T - 1];
         const float* src = smem + y * L::iw + c0;
@@ -113,6 +107,21 @@ __device__ __forceinline__ void bank_rows(float* smem, const float* __restrict__
         }
     }
     __syncthreads();
+}
+
+// Stages 1 and 2 for the tile at (y0, x0) of one h x w plane, both ending in
+// a barrier. Rows and strips that no output of the plane reads (the tile's
+// part beyond the bottom and right edges) are neither staged nor passed.
+template <int R, int TH, int TW, int SW>
+__device__ __forceinline__ void bank_rows(float* smem, const float* __restrict__ image, int h,
+                                          int w, int y0, int x0, const SepBank& bank) {
+    using L = BankTile<R, TH, TW>;
+    static_assert(TW % SW == 0, "row strips must tile the width");
+    const int n_y = min(L::ih, h - y0 + 2 * R);
+    const int n_strips = ceil_div(min(TW, w - x0), SW);
+    stage_reflect(smem, L::iw, image, h, w, y0 - R, x0 - R, n_y, n_strips * SW + 2 * R);
+    __syncthreads();
+    bank_row_pass<R, TH, TW, SW>(smem, 0, n_y, n_strips, bank);
 }
 
 // Stage 3 for filter k: the responses at tile rows r0 .. r0 + P - 1 of tile

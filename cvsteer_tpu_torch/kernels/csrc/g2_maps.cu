@@ -36,24 +36,9 @@ struct G2MapsTail {
     using Params = NoParams;
 
     __device__ static void apply(const float (&b)[K], const Params&, float (&out)[3]) {
-        const float g2a = b[0], g2b = b[1], g2c = b[2];
-        const float h2a = b[3], h2b = b[4], h2c = b[5], h2d = b[6];
-        const float s_gd = g2a + g2c;
-        const float d_gd = g2a - g2c;
-        const float c2 = 0.5f * (s_gd * d_gd)
-                         + 0.46875f * (h2a * h2a - h2d * h2d)
-                         + 0.28125f * (h2b * h2b - h2c * h2c)
-                         + 0.1875f * (h2a * h2c - h2b * h2d);
-        const float c3 = -(g2b * s_gd) - 0.9375f * (h2c * h2d + h2a * h2b)
-                         - 1.6875f * h2b * h2c - 0.1875f * h2a * h2d;
-        float u, v;
-        unit_harmonic(c2, c3, u, v);
-        const float g2v = 0.5f * (s_gd + u * d_gd) - v * g2b;
-        const float P = 0.5f * ((h2a + 3.0f * h2c) + u * (h2a - 3.0f * h2c));
-        const float Q = 0.5f * ((3.0f * h2b + h2d) + u * (3.0f * h2b - h2d));
-        const float PP = P * P, QQ = Q * Q;
-        const float h2sq = fmaxf(0.5f * ((PP + QQ) + u * (PP - QQ)) - v * (P * Q), 0.0f);
-        maps_out(g2v, g2v * g2v, h2sq, out);
+        float c2, c3;
+        g2_harmonic_sd(b, c2, c3);
+        g2_steer_maps(b, c2, c3, out);
     }
 };
 

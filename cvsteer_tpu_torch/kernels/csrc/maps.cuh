@@ -67,6 +67,38 @@ __device__ __forceinline__ void unit_harmonic(float c2, float c3, float& u, floa
     v = c3 * inv_rho;
 }
 
+// The G2 energy's second harmonic (c2, c3) from Freeman & Adelson's table,
+// b = (g2a, g2b, g2c, h2a, h2b, h2c, h2d), with s = g2a + g2c and
+// d = g2a - g2c shared (kernel E's form).
+__device__ __forceinline__ void g2_harmonic_sd(const float (&b)[7], float& c2, float& c3) {
+    const float g2a = b[0], g2b = b[1], g2c = b[2];
+    const float h2a = b[3], h2b = b[4], h2c = b[5], h2d = b[6];
+    const float s_gd = g2a + g2c;
+    const float d_gd = g2a - g2c;
+    c2 = 0.5f * (s_gd * d_gd)
+         + 0.46875f * (h2a * h2a - h2d * h2d)
+         + 0.28125f * (h2b * h2b - h2c * h2c)
+         + 0.1875f * (h2a * h2c - h2b * h2d);
+    c3 = -(g2b * s_gd) - 0.9375f * (h2c * h2d + h2a * h2b)
+         - 1.6875f * h2b * h2c - 0.1875f * h2a * h2d;
+}
+
+// The sqrt-free G2/H2 steering from (c2, c3): the steered even response g
+// and the square of the odd one h^2 are polynomials in (u, v); then maps_out.
+__device__ __forceinline__ void g2_steer_maps(const float (&b)[7], float c2, float c3,
+                                              float (&out)[3]) {
+    const float g2a = b[0], g2b = b[1], g2c = b[2];
+    const float h2a = b[3], h2b = b[4], h2c = b[5], h2d = b[6];
+    float u, v;
+    unit_harmonic(c2, c3, u, v);
+    const float g2v = 0.5f * ((g2a + g2c) + u * (g2a - g2c)) - v * g2b;
+    const float P = 0.5f * ((h2a + 3.0f * h2c) + u * (h2a - 3.0f * h2c));
+    const float Q = 0.5f * ((3.0f * h2b + h2d) + u * (3.0f * h2b - h2d));
+    const float PP = P * P, QQ = Q * Q;
+    const float h2sq = fmaxf(0.5f * ((PP + QQ) + u * (PP - QQ)) - v * (P * Q), 0.0f);
+    maps_out(g2v, g2v * g2v, h2sq, out);
+}
+
 template <int R, class Tail, typename OutT>
 __global__ void __launch_bounds__(kBankThreads, 2)
 maps_kernel(const float* __restrict__ in, OutT* __restrict__ m0, OutT* __restrict__ m1,

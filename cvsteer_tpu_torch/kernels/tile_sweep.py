@@ -10,7 +10,7 @@ together) into ``_build/sweep/``, run each build through the kernel's
 wrapper at its path's shapes, check it bit for bit against the plain
 version, and print one JSON line per shape: registers, spill bytes, shared
 memory per block, blocks per SM (by registers, shared memory and threads)
-and device ms (torch.profiler over 25 calls).
+and device ms (utils.profiling.device_ms: torch.profiler over 25 calls).
 
 - ``c`` (g2_features.cu, ``CVS_C_TILE_H/W``): the 5-level pyramid of a
   480x640 frame, one launch; ms per frame.
@@ -43,6 +43,7 @@ import subprocess
 import sys
 
 from cvsteer_tpu_torch import kernels
+from cvsteer_tpu_torch.utils.profiling import device_ms
 
 DEFAULT_TILES = {
     "c": "32x64,16x64,32x32,64x64,16x128,32x128,64x32",
@@ -129,27 +130,6 @@ def _bank_smem(th: int, tw: int, radius: int, n_rows: int) -> int:
     return 4 * (ih * ((tw + 2 * radius) | 1) + n_rows * ih * (tw | 1))
 
 
-def _device_ms(fn, kernel: str, reps: int = 25) -> float:
-    """Device ms of one call of ``fn``: the summed duration of the events of
-    the CUDA function ``kernel`` over ``reps`` calls, per call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    t = [e.time_range.elapsed_us() for e in prof.events()
-         if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not t:
-        raise RuntimeError(f"torch.profiler reported no device time for {kernel}")
-    return sum(t) / reps / 1e3
-
-
 def _frame_levels():
     import torch
 
@@ -191,7 +171,7 @@ def sweep_c(builds, nms_radius: int):
             tile=f"{th}x{tw}", registers=regs, spill_bytes=spills, smem_bytes=smem,
             blocks_per_sm=min(2, _blocks_per_sm(regs, smem)), tiles=n_tiles,
             halo_factor=(ih * swr + shc * sw) / (2 * th * tw),
-            device_ms=_device_ms(call, "g2_features_kernel"),
+            device_ms=device_ms(call, ("g2_features_kernel",), 1)[0],
         )
 
 
@@ -216,7 +196,8 @@ def sweep_a(builds):
             smem = _bank_smem(th, tw, radius, n_rows)
             rec.update({f"{key}_registers": regs, f"{key}_spill_bytes": spills, f"{key}_smem_bytes": smem,
                         f"{key}_blocks_per_sm": _blocks_per_sm(regs, smem),
-                        f"{key}_device_ms": _device_ms(lambda c=calls: [f() for f in c], "filter_bank_kernel")})
+                        f"{key}_device_ms": device_ms(lambda c=calls: [f() for f in c], ("filter_bank_kernel",),
+                                                       len(calls))[0]})
         rec["tiles"] = sum(-(-lv.shape[-1] // tw) * -(-lv.shape[-2] // th) for lv in levels)
         yield same, rec
 
@@ -250,7 +231,7 @@ def sweep_maps(builds, order: int):
             spill_bytes_any_radius=spills_any,
             smem_bytes=smem, blocks_per_sm=_blocks_per_sm(regs, smem),
             tiles=16 * -(-512 // th) * -(-512 // tw), halo_factor=(th + 2 * radius) / th,
-            device_ms=_device_ms(call, "maps_kernel"),
+            device_ms=device_ms(call, ("maps_kernel",), 1)[0],
         )
 
 

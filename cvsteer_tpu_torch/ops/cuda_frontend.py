@@ -364,8 +364,9 @@ def _unit_harmonic(c2, c3):
     return torch.where(pos, c2 * inv_rho, 1.0), c3 * inv_rho
 
 
-def g2_maps_tail(basis: torch.Tensor, out_dtype=torch.float32):
-    """(edges, dark, bright) from the G2/H2 basis ``[..., 7, H, W]``."""
+def g2_harmonic_sd(basis: torch.Tensor):
+    """The G2 energy's second harmonic (c2, c3) from the basis ``[..., 7, H,
+    W]``, with g2a + g2c and g2a - g2c shared (kernel E's form)."""
     g2a, g2b, g2c, h2a, h2b, h2c, h2d = [basis[..., k, :, :] for k in range(7)]
     s_gd = g2a + g2c
     d_gd = g2a - g2c
@@ -379,13 +380,24 @@ def g2_maps_tail(basis: torch.Tensor, out_dtype=torch.float32):
         -(g2b * s_gd) - 0.9375 * (h2c * h2d + h2a * h2b)
         - 1.6875 * h2b * h2c - 0.1875 * h2a * h2d
     )
+    return c2, c3
+
+
+def g2_steer_maps(basis: torch.Tensor, c2, c3, out_dtype=torch.float32):
+    """(edges, dark, bright) by the sqrt-free steering from (c2, c3)."""
+    g2a, g2b, g2c, h2a, h2b, h2c, h2d = [basis[..., k, :, :] for k in range(7)]
     u, v = _unit_harmonic(c2, c3)
-    g2v = 0.5 * (s_gd + u * d_gd) - v * g2b
+    g2v = 0.5 * ((g2a + g2c) + u * (g2a - g2c)) - v * g2b
     P = 0.5 * ((h2a + 3.0 * h2c) + u * (h2a - 3.0 * h2c))
     Q = 0.5 * ((3.0 * h2b + h2d) + u * (3.0 * h2b - h2d))
     PP, QQ = P * P, Q * Q
     h2sq = torch.clamp_min(0.5 * ((PP + QQ) + u * (PP - QQ)) - v * (P * Q), 0.0)
     return _maps_out(g2v, g2v * g2v, h2sq, out_dtype)
+
+
+def g2_maps_tail(basis: torch.Tensor, out_dtype=torch.float32):
+    """(edges, dark, bright) from the G2/H2 basis ``[..., 7, H, W]``."""
+    return g2_steer_maps(basis, *g2_harmonic_sd(basis), out_dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,6 +16,7 @@ from cvsteer_tpu_torch import kernels
 from cvsteer_tpu_torch.filters import taps
 from cvsteer_tpu_torch.ops import cuda_desc as cd
 from cvsteer_tpu_torch.ops import cuda_frontend as cf
+from cvsteer_tpu_torch.ops import cuda_probes as cp
 from cvsteer_tpu_torch.ops.sepconv import filter_bank_plain
 
 pytestmark = pytest.mark.cuda
@@ -317,3 +318,135 @@ def test_torch_cuda_vo_step_on_the_card(cuda):
     assert counts["filter_bank"] == 0
     assert counts["pyr_down"] == 2 * 4
     assert counts["g2_features_full"] == counts["desc_sample"] == 2
+
+
+# ---------------------------------------------------------------------------
+# The measurement probes' kernels G, S, V and M (ops.cuda_probes)
+# ---------------------------------------------------------------------------
+
+
+def _probe_taps():
+    bank = taps.g2h2_bank()  # width 4: 7 filters of 9 taps, the probes' bank
+    return bank.xtaps, bank.ytaps
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("rows,lanes,dtype", [(307200, 16, torch.bfloat16), (38400, 256, torch.bfloat16),
+                                              (1000, 7, torch.bfloat16), (999, 3, torch.float32),
+                                              (50, 5, torch.uint8)])
+def test_torch_cuda_probe_gather_rows_bit_equal(cuda, rows, lanes, dtype):
+    """Kernel G, rows: the probe's 32 B and 512 B rows and rows of 14, 12
+    and 5 bytes (8-, 4- and 1-byte pieces), with indices at the table's last
+    row and past both ends (clamped), bit for bit against the plain gather."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    tbl = (torch.randn((rows, lanes), device=cuda, generator=gen).abs() * 50).to(dtype)
+    m = 4096 if rows > 1000 else 301
+    idx = torch.randint(0, rows, (m,), device=cuda, generator=gen, dtype=torch.int32)
+    idx[:4] = torch.tensor([rows - 1, rows, rows + 100, -3], dtype=torch.int32)
+    before = kernels.launch_counts()["probe_gather_rows"]
+    got = cp.gather_rows(tbl, idx)
+    assert kernels.launch_counts()["probe_gather_rows"] == before + 1
+    want = cp.gather_rows_plain(tbl, idx)
+    assert got.shape == (m, lanes) and torch.equal(_bytes(got), _bytes(want))
+
+
+@pytest.mark.parametrize("h,w,ph,pw,dtype", [(480, 5120, 16, 256, torch.bfloat16),
+                                             (37, 300, 5, 33, torch.bfloat16),
+                                             (64, 96, 16, 32, torch.float32)])
+def test_torch_cuda_probe_gather_patches_bit_equal(cuda, h, w, ph, pw, dtype):
+    """Kernel G, patches: the probe's 2,048 16 x 256 bf16 patches, odd widths
+    (element copies) and float32 patches, starts unaligned and at and past
+    the bottom and right edges (clamped so the window fits)."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    img = torch.randn((h, w), device=cuda, generator=gen).to(dtype)
+    k = 2048 if h == 480 else 97
+    ys = torch.randint(0, h - ph, (k,), device=cuda, generator=gen, dtype=torch.int32)
+    xs = torch.randint(0, (w - pw) // 8, (k,), device=cuda, generator=gen, dtype=torch.int32) * 8
+    xs[::5] += 3
+    ys[:3] = torch.tensor([h - ph, h - 1, h + 9], dtype=torch.int32)
+    xs[:3] = torch.tensor([w - pw, w - 2, w + 40], dtype=torch.int32)
+    before = kernels.launch_counts()["probe_gather_patches"]
+    got = cp.gather_patches(img, ys, xs, ph, pw)
+    assert kernels.launch_counts()["probe_gather_patches"] == before + 1
+    want = cp.gather_patches_plain(img, ys, xs, ph, pw)
+    assert got.shape == (k, ph, pw) and torch.equal(_bytes(got), _bytes(want))
+
+
+PROBE_SHAPES = [(16, 512, 512), (2, 61, 83), (1, 130, 70), (1, 1), (3, 5)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_torch_cuda_probe_stages_bit_equal(cuda, shape):
+    """Kernel S: every stage with both output conventions, bit for bit
+    against the plain stage (correctly rounded sqrt on the card)."""
+    xt, yt = _probe_taps()
+    img = torch.from_numpy(_texture(shape, seed=11)).to(cuda)
+    for outputs in cp.OUTPUTS:
+        for stage in cp.STAGES:
+            before = kernels.launch_counts()["probe_maps_stages"]
+            got = cp.maps_stage(img, xt, yt, stage, outputs)
+            assert kernels.launch_counts()["probe_maps_stages"] == before + 1
+            want = cp.maps_stage_plain(img, xt, yt, stage, outputs)
+            for g, w in zip(got, want):
+                assert g.shape == img.shape and torch.equal(g, w), (stage, outputs, shape)
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_torch_cuda_probe_variants_bit_equal(cuda, shape):
+    """Kernel V: every case it is built for, carried or not, bit for bit
+    against the plain variant; sd is kernel E's tail, so it also equals E's
+    fp32 maps."""
+    xt, yt = _probe_taps()
+    img = torch.from_numpy(np.rint(_texture(shape, seed=12))).to(cuda)
+    for tail, carry, tile in sorted(cp.VARIANT_CASES):
+        before = kernels.launch_counts()["probe_maps_variants"]
+        got = cp.maps_variant(img, xt, yt, tail, carry=carry, tile_h=tile)
+        assert kernels.launch_counts()["probe_maps_variants"] == before + 1
+        want = cp.maps_variant_plain(img, xt, yt, tail)
+        for g, w in zip(got, want):
+            assert g.shape == img.shape and torch.equal(g, w), (tail, carry, tile, shape)
+    sd = cp.maps_variant(img, xt, yt, "sd")
+    assert all(torch.equal(a, b) for a, b in zip(sd, cf.g2_maps(img, xt, yt)))
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES[:3])
+def test_torch_cuda_probe_mma_matches_plain(cuda, shape):
+    """Kernel M against its plain version (the same bf16 splits and
+    products, torch.matmul in fp32), within the tolerance stated in
+    ops.cuda_probes (mma_agreement): the tensor cores sum in an order of
+    their own, so the row stage (CUDA cores, plain order) is bit-equal, col
+    and coeff agree to 1e-5 of scale (1e-4 after the rowmxu row pass), and
+    the full maps, ill-conditioned where the orientation is not firm, to
+    1e-5 of scale at most pixels and to 1e-3 where it is firm."""
+    xt, yt = _probe_taps()
+    img = torch.from_numpy(_texture(shape, seed=13)).to(cuda)
+    for stage, row, col in sorted(cp.MMA_CASES):
+        before = kernels.launch_counts()["probe_maps_mma"]
+        got = cp.maps_mma(img, xt, yt, stage, row, col)
+        assert kernels.launch_counts()["probe_maps_mma"] == before + 1
+        want = cp.maps_mma_plain(img, xt, yt, stage, row, col)
+        assert all(g.shape == img.shape for g in got)
+        c3 = cp.maps_mma_plain(img, xt, yt, "coeff", row, col)[1] if stage == "full" else None
+        res = cp.mma_agreement(got, want, stage, row, c3)
+        assert res["ok"], (stage, row, col, res)
+
+
+def test_torch_cuda_probe_wrappers_raise(cuda):
+    xt, yt = _probe_taps()
+    img = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError):  # the G2/H2 bank at width 4 only
+        cp.maps_stage(img, np.zeros((7, 11)), np.zeros((7, 11)), "full")
+    with pytest.raises(ValueError):
+        cp.maps_variant(img, xt, yt, "tail16", carry=True)
+    with pytest.raises(ValueError):
+        cp.maps_mma(img, xt, yt, "row", "mma", "bf16x3")
+    with pytest.raises(TypeError):
+        cp.maps_stage(img.double(), xt, yt, "load")
+    with pytest.raises(ValueError):  # int32 indices only
+        cp.gather_rows(torch.zeros((4, 8), device=cuda), torch.zeros(3, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):  # a patch larger than the image
+        z = torch.zeros(2, dtype=torch.int32, device=cuda)
+        cp.gather_patches(torch.zeros((8, 8), device=cuda), z, z, 16, 4)
