@@ -84,7 +84,10 @@ class Features(NamedTuple):
 def _check_config(cfg: FrontendConfig) -> None:
     if cfg.order == 4:
         raise NotImplementedError(
-            "G4/H4 features are not ported yet (a later PR ports filters/g4.py)"
+            "G4/H4 features are not ported yet: they need the generic detector "
+            "path (detect_keypoints, detect_keypoints_cs, "
+            "detect_keypoints_premasked) and the G4 descriptors "
+            "(phase_descriptors_g4); the G4/H4 bank itself is ported"
         )
     if cfg.order != 2:
         raise ValueError(f"order must be 2 or 4, got {cfg.order}")

@@ -137,8 +137,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # in, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
     "cvs_filter_bank": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # in, out, n, h, w, stream
-    "cvs_pyr_down": (_P, _P, _I, _I, _I, _P),
+    # in, out (levels 1.. one after another), tickets, n, h, w, levels, stream
+    "cvs_pyr_down_levels": (_P, _P, _P, _I, _I, _I, _I, _P),
     # ptrs [L, 7] int64 (host), hw [L, 2] int32 (host), n_levels, n, t,
     # xtaps(host), ytaps(host), threshold, nms_radius, stream
     "cvs_g2_features": (_P, _P, _I, _I, _I, _P, _P, _F, _I, _P),
@@ -152,8 +152,8 @@ _SIGNATURES = {
     "cvs_maps_g4": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P),
     # in, score, ct, st, n, h, w, t, xtaps(host), ytaps(host), stream
     "cvs_features_g2": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # grad, scratch, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
-    "cvs_filter_bank_adj": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # grad, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
+    "cvs_filter_bank_adj": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, idx, out, n_tbl, m, row_bytes, stream
     "cvs_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
     # img, ys, xs, out, k, h, w, ph, pw, elem_bytes, stream

@@ -139,14 +139,3 @@ __device__ __forceinline__ void column_strip(const float* smem, const SepBank& b
     for (int j = 0; j < P + T - 1; ++j) win[j] = src[j * L::rs];
     strip_pass<T, P>(win, bank.y[k], out);
 }
-
-// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB the
-// runtime asks for it); `granted` is the caller's per-kernel record.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel* kernel, size_t bytes, size_t& granted) {
-    if (bytes <= granted) return cudaSuccess;
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e == cudaSuccess) granted = bytes;
-    return e;
-}

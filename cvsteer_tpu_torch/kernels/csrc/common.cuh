@@ -19,7 +19,7 @@
 __device__ __forceinline__ int reflect101(int i, int n) {
     if (n == 1) return 0;
     const int period = 2 * (n - 1);
-    i %= period;
+    if (i < -period || i >= period) i %= period;  // one reflection needs no division
     if (i < 0) i += period;
     return i < n ? i : period - i;
 }
@@ -36,15 +36,14 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
 // pass, then a column pass, each summing its taps in order from t = 0 with
 // one rounding per operation (the library builds with --fmad=false).
 // strip_pass below writes that order for A, C and E (bank_core.cuh);
-// row_pass and col_at write its transpose for F.
+// strip_pass_flip writes its transpose for F (filter_bank_adj.cu).
 // ---------------------------------------------------------------------------
 
 constexpr int kBankMaxK = 11;
 constexpr int kBankMaxT = 17;
 
 // ---------------------------------------------------------------------------
-// Kernel F's helpers: by-value taps, zero-extended staging and the
-// transposed (flipped) passes of the bank's adjoint
+// Kernel F's taps: passed by value, one bank per launch
 // ---------------------------------------------------------------------------
 
 // The taps of one bank, passed by value as a kernel parameter: the hardware
@@ -65,45 +64,6 @@ inline SepTaps pack_taps(const float* xtaps, const float* ytaps, int k, int t) {
         }
     }
     return taps;
-}
-
-// Stage rows [y_org, y_org + th) x columns [x_org, x_org + tw) of one plane
-// into shared memory, the block's threads striding over it, zero outside
-// the plane. (Reflected staging is stage_reflect's.)
-template <bool kReflect, int TH, int TW>
-__device__ __forceinline__ void stage_tile(float (&tile)[TH][TW], const float* __restrict__ src,
-                                           int h, int w, int y_org, int x_org, int th, int tw) {
-    static_assert(!kReflect, "stage_tile zero-extends; stage_reflect reflects");
-    for (int i = threadIdx.x; i < th * tw; i += blockDim.x) {
-        const int ty = i / tw, tx = i - (i / tw) * tw;
-        const int gy = y_org + ty, gx = x_org + tx;
-        tile[ty][tx] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? src[(size_t)gy * w + gx] : 0.0f;
-    }
-}
-
-// Transposed row pass of filter k over the first th staged rows:
-// rows[y][c] = sum_t x_k[t] tile[y][c + T - 1 - t].
-template <bool kFlip, int TH, int TW, int RW>
-__device__ __forceinline__ void row_pass(const float (&tile)[TH][TW], float (&rows)[TH][RW],
-                                         const SepTaps& taps, int k, int T, int th) {
-    static_assert(kFlip, "the forward row pass is strip_pass's");
-    for (int i = threadIdx.x; i < th * RW; i += blockDim.x) {
-        const int y = i / RW, c = i - (i / RW) * RW;
-        float a = tile[y][c + T - 1] * taps.x[k][0];
-        for (int t = 1; t < T; ++t) a = a + tile[y][c + T - 1 - t] * taps.x[k][t];
-        rows[y][c] = a;
-    }
-}
-
-// Transposed column pass of filter k at row y, column c of the row buffer:
-// sum_t y_k[t] rows[y + T - 1 - t][c].
-template <bool kFlip, int TH, int RW>
-__device__ __forceinline__ float col_at(const float (&rows)[TH][RW], const SepTaps& taps, int k,
-                                        int T, int y, int c) {
-    static_assert(kFlip, "the forward column pass is strip_pass's");
-    float a = rows[y + T - 1][c] * taps.y[k][0];
-    for (int t = 1; t < T; ++t) a = a + rows[y + T - 1 - t][c] * taps.y[k][t];
-    return a;
 }
 
 // ---------------------------------------------------------------------------
@@ -131,6 +91,22 @@ __device__ __forceinline__ void strip_pass(const float (&win)[P + T - 1], const 
     }
 }
 
+// The transposed twin of strip_pass (kernel F, the bank's adjoint): P
+// consecutive outputs of the correlation with the flipped taps,
+// out[p] = sum_t taps[t] win[p + T - 1 - t], taps ascending from t = 0 —
+// the order of the plain adjoint's shift-and-accumulate.
+template <int T, int P>
+__device__ __forceinline__ void strip_pass_flip(const float (&win)[P + T - 1], const float* taps,
+                                                float (&out)[P]) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        float a = win[p + T - 1] * taps[0];
+#pragma unroll
+        for (int t = 1; t < T; ++t) a = a + win[p + T - 1 - t] * taps[t];
+        out[p] = a;
+    }
+}
+
 // Stage rows [y_org, y_org + th) x columns [x_org, x_org + tw) of one plane
 // into a shared buffer of row stride ld, REFLECT_101 outside the plane: one
 // warp per row, its lanes along the row, so the row's reflected index is
@@ -148,6 +124,81 @@ __device__ __forceinline__ void stage_reflect(float* __restrict__ dst, int ld,
             out[tx] = row[(unsigned)gx < (unsigned)w ? gx : reflect101(gx, w)];
         }
     }
+}
+
+// stage_reflect with every load of a thread issued before its first store
+// (kernel B). kCoherent reads through L2 only (ld.global.cg), never the
+// read-only path: for a plane that other blocks of the same launch wrote.
+// The region is at most TH x TW (th <= TH, tw <= TW, known when compiled),
+// so a thread's ceil(TH / WARPS) x ceil(TW / 32) loads unroll into registers
+// and are in flight together, instead of one load's latency per element.
+template <int TH, int TW, int WARPS, bool kCoherent = false>
+__device__ __forceinline__ void stage_reflect_batch(float* __restrict__ dst, int ld,
+                                                    const float* __restrict__ src, int h, int w,
+                                                    int y_org, int x_org, int th, int tw) {
+    constexpr int kRows = (TH + WARPS - 1) / WARPS, kCols = (TW + 31) / 32;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float v[kRows][kCols];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        const int ty = warp + r * WARPS, gy = y_org + ty;
+        const float* row = src + (size_t)((unsigned)gy < (unsigned)h ? gy : reflect101(gy, h)) * w;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+            const int tx = lane + 32 * c, gx = x_org + tx;
+            if (ty < th && tx < tw) {
+                const float* p = row + ((unsigned)gx < (unsigned)w ? gx : reflect101(gx, w));
+                v[r][c] = kCoherent ? __ldcg(p) : *p;
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        const int ty = warp + r * WARPS;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+            const int tx = lane + 32 * c;
+            if (ty < th && tx < tw) dst[ty * ld + tx] = v[r][c];
+        }
+    }
+}
+
+// 4-byte cp.async from device to shared memory; with valid false it reads
+// nothing (src-size 0) and zero-fills the destination — the zero extension
+// of kernel F's gradient planes. src must still be a mapped address.
+__device__ __forceinline__ void cp_async_zfill4(float* dst, const float* src, bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A release-acquire fence at device scope (fence.acq_rel.gpu): lighter than
+// __threadfence's sequentially consistent one, and enough to publish a
+// block's stores before an atomic ticket and to read what others published.
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB the
+// runtime asks for it); `granted` is the caller's per-kernel record.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel* kernel, size_t bytes, size_t& granted) {
+    if (bytes <= granted) return cudaSuccess;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess) granted = bytes;
+    return e;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,16 +1,18 @@
-"""Tile shapes of kernels C, A, E and E4 on the card, and every kernel's
-registers and spills.
+"""Tile shapes of kernels C, A, E, E4, B and F on the card, and every
+kernel's registers and spills.
 
-    python -m cvsteer_tpu_torch.kernels.tile_sweep [--kernel c|a|e|e4|ptxas] [--tiles 32x64,...]
-                                                   [--strips 4,8] [--row-strips 2]
+    python -m cvsteer_tpu_torch.kernels.tile_sweep [--kernel c|a|e|e4|b|f|ptxas] [--tiles 32x64,...]
+                                                   [--strips 4,8] [--row-strips 2] [--block-levels 4]
+                                                   [--define MACRO=VALUE ...]
 
-``c``, ``a``, ``e`` and ``e4`` build the kernel's source once per shape (``-D``
-macros, ``-Xptxas -v`` for registers and spills, all builds started
-together) into ``_build/sweep/``, run each build through the kernel's
-wrapper at its path's shapes, check it bit for bit against the plain
-version, and print one JSON line per shape: registers, spill bytes, shared
-memory per block, blocks per SM (by registers, shared memory and threads)
-and device ms (utils.profiling.device_ms: torch.profiler over 25 calls).
+``c``, ``a``, ``e``, ``e4``, ``b`` and ``f`` build the kernel's source once per
+shape (``-D`` macros, ``-Xptxas -v`` for registers and spills, all builds
+started together) into ``_build/sweep/``, run each build through the
+kernel's wrapper at its path's shapes, check it bit for bit against the
+plain version, and print one JSON line per shape: registers, spill bytes,
+shared memory per block, blocks per SM (by registers, shared memory and
+threads) and device ms (utils.profiling.device_ms: torch.profiler over 25
+calls).
 
 - ``c`` (g2_features.cu, ``CVS_C_TILE_H/W``): the 5-level pyramid of a
   480x640 frame, one launch; ms per frame.
@@ -25,6 +27,15 @@ and device ms (utils.profiling.device_ms: torch.profiler over 25 calls).
 - ``e`` (g2_maps.cu, ``CVS_E_TILE_H/W``, ``CVS_E_STRIP_H``,
   ``CVS_E_ROW_STRIP``): the same for kernel E, the G2/H2 maps
   (g2_feature_maps.cu, E′, takes the same macros).
+- ``b`` (pyr_down.cu, ``CVS_B_TILE_H/W``, the tile of the deepest level a
+  block builds, and that depth ``CVS_B_LEVELS``, each of
+  ``--block-levels``): the 5-level pyramid of a 480x640 frame in one launch
+  (the VO path's call), and the same launch for 2, 3 and 4 levels (2: one
+  pyramid step); ms per call.
+- ``f`` (filter_bank_adj.cu, ``CVS_F_TILE_H/W``, the column-strip height
+  ``CVS_F_COL_STRIP`` and the row-strip width ``CVS_F_ROW_STRIP``): the
+  gradient phase's 1x480x640 with the G2/H2 (K 7, T 9) and G4/H4 (K 11,
+  T 13) banks; ms per call of each.
 
 ``ptxas`` builds the whole library with ``-Xptxas -v`` and prints one JSON
 line per kernel instantiation (registers, spill bytes) and a last line with
@@ -50,6 +61,8 @@ DEFAULT_TILES = {
     "a": "32x64,32x32,16x64,64x32,16x32,8x64,64x64",
     "e4": "32x32,32x64,64x32,48x32,16x64",
     "e": "32x64,64x32,32x32,16x64",
+    "b": "2x4,2x8,4x4,4x8",
+    "f": "32x32,16x32,32x16,16x64,32x64,64x32",
 }
 SOURCES = {  # kernel -> its source, the macros of its tile height and width, column-strip
     # height and row-strip width (None: fixed in the source), its ctypes entry
@@ -60,6 +73,10 @@ SOURCES = {  # kernel -> its source, the macros of its tile height and width, co
            "cvs_maps_g4"),
     "e": ("g2_maps.cu", ("CVS_E_TILE_H", "CVS_E_TILE_W", "CVS_E_STRIP_H", "CVS_E_ROW_STRIP"),
           "cvs_maps_g2"),
+    # for b the third macro is the depth a block builds (--block-levels)
+    "b": ("pyr_down.cu", ("CVS_B_TILE_H", "CVS_B_TILE_W", "CVS_B_LEVELS", None), "cvs_pyr_down_levels"),
+    "f": ("filter_bank_adj.cu", ("CVS_F_TILE_H", "CVS_F_TILE_W", "CVS_F_COL_STRIP", "CVS_F_ROW_STRIP"),
+          "cvs_filter_bank_adj"),
 }
 SMEM_PER_SM = 233472  # H100: 228 KB of shared memory per SM, 1 KB of it reserved per block
 
@@ -235,6 +252,98 @@ def sweep_maps(builds, order: int):
         )
 
 
+def _pyr_smem(th: int, tw: int, max_m: int, m: int, tail: bool) -> int:
+    """Shared bytes of kernel B for a block that builds levels 1 .. m
+    (pyr_down.cu PyrLayout; row strips of 4, column strips of 2, a 32x48
+    tail tile)."""
+    up = lambda a, b: -(-a // b) * b  # noqa: E731
+    th, tw = th << (max_m - m), tw << (max_m - m)
+
+    def region(n, down):
+        for _ in range(down):
+            n = 2 * n + 3
+        return n
+    rh = lambda lv: region(th, m - lv)  # noqa: E731
+    rw = lambda lv: region(tw, m - lv)  # noqa: E731
+    src_ld = lambda lv: (2 * up(rw(lv), 4) + 3) | 1  # noqa: E731
+    level = lambda lv: rh(lv - 1) * src_ld(lv)  # noqa: E731
+    a = max(level(lv) for lv in range(1, m + 1, 2))
+    b = max((level(lv) for lv in range(2, m + 1, 2)), default=0)
+    rows = max((2 * up(rh(lv), 2) + 3) * (up(rw(lv), 4) | 1) for lv in range(1, m + 1))
+    floats = a + b + rows
+    if tail:
+        t_ld, t_rows = (2 * 48 + 3) | 1, 2 * 32 + 3
+        floats = max(floats, t_rows * t_ld + t_rows * (48 | 1))
+    return 4 * floats
+
+
+def sweep_b(builds):
+    import torch
+
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    levels = _frame_levels()
+    frame = levels[0]
+    for (th, tw, max_m, _), log, path in builds:
+        m = min(len(levels) - 1, max_m)
+        smem = _pyr_smem(th, tw, max_m, m, len(levels) - 1 > max_m)
+        if smem > SMEM_PER_SM - 1024:
+            yield True, dict(tile=f"{th}x{tw}", block_levels=max_m, smem_bytes=smem, skipped="shared memory")
+            continue
+        _load(path, "cvs_pyr_down_levels")
+        got = cf.pyr_down_levels(frame, len(levels))
+        same = all(torch.equal(g, w) for g, w in zip(got, levels))
+        same &= torch.equal(cf.pyr_down(frame), levels[1])
+        regs, spills = _usage(log, r"pyr_down_kernel")
+        hm, wm = levels[m].shape[-2:]
+        yield same, dict(
+            tile=f"{th}x{tw}", block_levels=max_m, registers=regs, spill_bytes=spills, smem_bytes=smem,
+            blocks_per_sm=_blocks_per_sm(regs, smem), blocks=-(-hm // th) * -(-wm // tw),
+            device_ms=device_ms(lambda: cf.pyr_down_levels(frame, len(levels)), ("pyr_down_kernel",), 1)[0],
+            # the same launch cut at fewer levels: 2 is one step
+            device_ms_by_levels={n: device_ms(lambda n=n: cf.pyr_down_levels(frame, n), ("pyr_down_kernel",),
+                                              1)[0] for n in range(2, len(levels))},
+        )
+
+
+def _adj_smem(th: int, tw: int, radius: int, col_strip: int, row_strip: int) -> int:
+    """Shared bytes of kernel F (filter_bank_adj.cu AdjLayout: two planes,
+    two row buffers)."""
+    up = lambda a, b: -(-a // b) * b  # noqa: E731
+    gh, gw = th + 3 * radius, tw + 3 * radius
+    rows_h, rows_w = up(gh, col_strip) + 2 * radius, up(gw, row_strip)
+    plane = rows_h * ((rows_w + 2 * radius) | 1)
+    return 4 * (2 * plane + 2 * rows_h * (rows_w | 1))
+
+
+def sweep_f(builds):
+    import torch
+
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.filters.g4 import g4_bank
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    banks = {"g2": g2_bank(), "g4": g4_bank()}
+    grads = {k: torch.randn((1, b.xtaps.shape[0], 480, 640), device="cuda", generator=gen)
+             for k, b in banks.items()}
+    want = {k: cf.filter_bank_adjoint_plain(grads[k], b.xtaps, b.ytaps) for k, b in banks.items()}
+    for (th, tw, cs, rs), log, path in builds:
+        _load(path, "cvs_filter_bank_adj")
+        rec, same = dict(tile=f"{th}x{tw}", col_strip=cs, row_strip=rs), True
+        for key, b in banks.items():
+            radius = (b.xtaps.shape[1] - 1) // 2
+            call = lambda g=grads[key], b=b: cf.filter_bank_adjoint(g, b.xtaps, b.ytaps)  # noqa: E731
+            same &= torch.equal(call(), want[key])
+            regs, spills = _usage(log, rf"adj_kernelILi{radius}E")
+            smem = _adj_smem(th, tw, radius, cs, rs)
+            rec.update({f"{key}_registers": regs, f"{key}_spill_bytes": spills, f"{key}_smem_bytes": smem,
+                        f"{key}_blocks_per_sm": _blocks_per_sm(regs, smem),
+                        f"{key}_device_ms": device_ms(call, ("adj_kernel",), 1)[0]})
+        rec["tiles"] = -(-480 // th) * -(-640 // tw)
+        yield same, rec
+
+
 def ptxas_report() -> int:
     """Build the library's sources with -Xptxas -v; one JSON line per kernel."""
     out_dir = os.path.join(kernels.BUILD_DIR, "sweep")
@@ -263,10 +372,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("c", "a", "e", "e4", "ptxas"), default="c")
+    ap.add_argument("--kernel", choices=("c", "a", "e", "e4", "b", "f", "ptxas"), default="c")
     ap.add_argument("--tiles", default=None)
-    ap.add_argument("--strips", default="4,8", help="e, e4: column-strip heights")
-    ap.add_argument("--row-strips", default="2", help="a, e, e4: row-strip widths")
+    ap.add_argument("--strips", default="4,8", help="e, e4, f: column-strip heights")
+    ap.add_argument("--row-strips", default="2", help="a, e, e4, f: row-strip widths")
+    ap.add_argument("--block-levels", default="4", help="b: the levels a block builds itself")
+    ap.add_argument("--define", action="append", default=[], metavar="MACRO=VALUE",
+                    help="another -D for every build (e.g. CVS_F_MIN_BLOCKS=3)")
     ap.add_argument("--nms-radius", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -277,13 +389,15 @@ def main(argv=None) -> int:
     tiles = [tuple(int(v) for v in t.split("x"))
              for t in (args.tiles or DEFAULT_TILES[args.kernel]).split(",")]
     macros = SOURCES[args.kernel][1]
-    strips = [int(s) for s in args.strips.split(",")] if macros[2] else [None]
+    third = args.block_levels if args.kernel == "b" else args.strips
+    strips = [int(s) for s in third.split(",")] if macros[2] else [None]
     rows = [int(s) for s in args.row_strips.split(",")] if macros[3] else [None]
     shapes = [(th, tw, s, sw) for th, tw in tiles for s in strips for sw in rows
-              if (s is None or th % s == 0) and (sw is None or tw % sw == 0)]
+              if (s is None or args.kernel == "b" or th % s == 0) and (sw is None or tw % sw == 0)]
     procs = []
     for shape in shapes:
-        defines = {m: v for m, v in zip(macros, shape) if v is not None}
+        defines = dict(d.split("=", 1) for d in args.define)
+        defines.update({m: v for m, v in zip(macros, shape) if v is not None})
         procs.append(_build(args.kernel, "x".join(str(v) for v in shape if v is not None), defines))
     builds = []
     for shape, (proc, path) in zip(shapes, procs):
@@ -293,12 +407,14 @@ def main(argv=None) -> int:
             return 1
         builds.append((shape, log, path))
     sweep = {"c": lambda b: sweep_c(b, args.nms_radius), "a": sweep_a,
-             "e": lambda b: sweep_maps(b, 2), "e4": lambda b: sweep_maps(b, 4)}[args.kernel]
+             "e": lambda b: sweep_maps(b, 2), "e4": lambda b: sweep_maps(b, 4), "b": sweep_b,
+             "f": sweep_f}[args.kernel]
     ok, card = True, torch.cuda.get_device_name(0)
     try:
         for same, rec in sweep(builds):
             ok &= same
-            print(json.dumps(dict(kernel=args.kernel, **rec, bit_equal=same, card=card)), flush=True)
+            print(json.dumps(dict(kernel=args.kernel, **rec, defines=args.define, bit_equal=same, card=card)),
+                  flush=True)
     finally:
         kernels._lib = None
     return 0 if ok else 1

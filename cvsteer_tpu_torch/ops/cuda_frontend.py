@@ -4,7 +4,9 @@ The port's counterpart of cvsteer_tpu.ops.pallas_frontend:
 
 - :func:`filter_bank` (kernel A, ``kernels/csrc/filter_bank.cu``) — the
   separable bank ``[..., H, W] -> [..., K, H, W]``;
-- :func:`pyr_down` (kernel B, ``kernels/csrc/pyr_down.cu``) — cv2.pyrDown;
+- :func:`pyr_down_levels` / :func:`pyr_down` (kernel B,
+  ``kernels/csrc/pyr_down.cu``) — every level of a Gaussian pyramid
+  (cv2.pyrDown steps) in one launch, or one step;
 - :func:`g2_features_levels` / :func:`g2_features_full` (kernel C,
   ``kernels/csrc/g2_features.cu``) — the detector maps
   ``(p3, dy, dx, ct, st, basis)`` of every level of a pyramid in one launch,
@@ -115,27 +117,69 @@ def pyr_down_plain(image: torch.Tensor) -> torch.Tensor:
     return filter_bank_plain(image, taps, taps)[..., 0, ::2, ::2]
 
 
-def pyr_down(image: torch.Tensor) -> torch.Tensor:
-    """``[..., H, W]`` -> ``[..., ceil(H/2), ceil(W/2)]``; any H, W."""
+#: Kernel B's ticket counters: one int32 per image, per device and stream.
+#: A launch that builds levels past the block's own (cvs_pyr_down_levels)
+#: leaves them at 0 for the next one on its stream, so they are zeroed only
+#: when a buffer is made or grown.
+_PYR_TICKETS = {}
+
+
+def _pyr_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _PYR_TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _PYR_TICKETS[key] = torch.zeros(max(n, 16), dtype=torch.int32, device=device)
+    return buf
+
+
+def pyr_down_levels(image: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:
+    """The Gaussian pyramid of ``image [..., H, W]``: ``levels`` tensors,
+    level 0 being ``image`` itself and level l ``[..., ceil(H / 2^l),
+    ceil(W / 2^l)]``; any H, W and levels >= 1.
+
+    On the card all levels past 0 are one launch of kernel B, into one
+    buffer (each level a view of it); its plain version composes
+    :func:`pyr_down_plain`."""
+    if levels < 1:
+        raise ValueError(f"pyr_down_levels: levels must be >= 1, got {levels}")
     if _on_cpu(image):
-        return pyr_down_plain(image)
+        out = [image]
+        for _ in range(levels - 1):
+            out.append(pyr_down_plain(out[-1]))
+        return tuple(out)
     _require(image, "image", 2)
+    if levels == 1:
+        return (image,)
     *batch, h, w = image.shape
     n = int(np.prod(batch)) if batch else 1
-    out = torch.empty(
-        tuple(batch) + (-(-h // 2), -(-w // 2)), dtype=torch.float32,
-        device=image.device,
-    )
+    shapes, (hl, wl) = [], (h, w)
+    for _ in range(levels - 1):
+        hl, wl = -(-hl // 2), -(-wl // 2)
+        shapes.append((hl, wl))
+    buf = torch.empty(n * sum(a * b for a, b in shapes), dtype=torch.float32, device=image.device)
+    out, off = [image], 0
+    for a, b in shapes:
+        out.append(buf[off: off + n * a * b].view(tuple(batch) + (a, b)))
+        off += n * a * b
     if n == 0:
-        return out
+        return tuple(out)
+    if n > 65535:
+        raise ValueError(f"pyr_down_levels: {n} images, at most 65535 per launch")
     lib = kernels.library()
+    stream = kernels.stream_handle(image.device)
     kernels.count_launch("pyr_down")
-    err = lib.cvs_pyr_down(
-        image.data_ptr(), out.data_ptr(), n, h, w,
-        kernels.stream_handle(image.device),
+    err = lib.cvs_pyr_down_levels(
+        image.data_ptr(), buf.data_ptr(), _pyr_tickets(image.device, stream, n).data_ptr(), n, h,
+        w, levels, stream,
     )
     kernels.check(err, "pyr_down")
-    return out
+    return tuple(out)
+
+
+def pyr_down(image: torch.Tensor) -> torch.Tensor:
+    """``[..., H, W]`` -> ``[..., ceil(H/2), ceil(W/2)]``; any H, W (one step
+    of :func:`pyr_down_levels`, one launch of kernel B)."""
+    return pyr_down_levels(image, 2)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -543,9 +587,8 @@ def filter_bank_adjoint_plain(grad: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
 
 
 def filter_bank_adjoint(grad: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
-    """``grad [..., K, H, W]`` -> ``[..., H, W]`` (kernel F: two launches,
-    the transpose correlation into an ``[N, H + 2r, W + 2r]`` buffer, then
-    the reflect fold)."""
+    """``grad [..., K, H, W]`` -> ``[..., H, W]`` (kernel F: one launch, the
+    transposed passes and the reflect fold of each tile in shared memory)."""
     xt = np.ascontiguousarray(xtaps, np.float32)
     yt = np.ascontiguousarray(ytaps, np.float32)
     if _on_cpu(grad):
@@ -561,11 +604,12 @@ def filter_bank_adjoint(grad: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
     out = torch.empty(tuple(batch) + (h, w), dtype=torch.float32, device=grad.device)
     if n == 0:
         return out
-    scratch = torch.empty((n, h + T - 1, w + T - 1), dtype=torch.float32, device=grad.device)
+    if n > 65535:
+        raise ValueError(f"filter_bank_adjoint: {n} images, at most 65535 per launch")
     lib = kernels.library()
     kernels.count_launch("filter_bank_adj")
     err = lib.cvs_filter_bank_adj(
-        grad.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, h, w, K, T,
+        grad.data_ptr(), out.data_ptr(), n, h, w, K, T,
         _host(xt), _host(yt),
         kernels.stream_handle(grad.device),
     )

@@ -3,7 +3,8 @@
 Downsampling follows cv2.pyrDown: the 5-tap binomial blur [1,4,6,4,1]/16
 applied separably with REFLECT_101 borders, then decimation by 2 keeping
 even indices. Level l has shape ceil(H / 2^l) x ceil(W / 2^l). On the card
-every step is kernel B (ops.cuda_frontend.pyr_down), which takes any shape.
+the whole pyramid is one launch of kernel B (ops.cuda_frontend.
+pyr_down_levels), which takes any shape.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from cvsteer_tpu_torch.ops.cuda_frontend import _BINOMIAL5, filter_bank, pyr_down
+from cvsteer_tpu_torch.ops.cuda_frontend import _BINOMIAL5, filter_bank, pyr_down, pyr_down_levels
 
 
 def blur5(image: torch.Tensor) -> torch.Tensor:
@@ -23,10 +24,7 @@ def blur5(image: torch.Tensor) -> torch.Tensor:
 
 def gaussian_pyramid(image: torch.Tensor, levels: int = 5) -> Tuple[torch.Tensor, ...]:
     """``levels`` images, level 0 being the input: [..., H/2^l, W/2^l]."""
-    out = [image]
-    for _ in range(levels - 1):
-        out.append(pyr_down(out[-1]))
-    return tuple(out)
+    return pyr_down_levels(image, levels)
 
 
 def level_shapes(h: int, w: int, levels: int) -> Sequence[Tuple[int, int]]:

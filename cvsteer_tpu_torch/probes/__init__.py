@@ -20,12 +20,14 @@ first line is the card's name and power limit, then the script's table of
 device times (utils.profiling.device_ms). Without a GPU a probe exits
 non-zero unless ``--device cpu`` is given; it then times the kernels'
 plain versions on the host clock and says so. ``measure()`` in each module
-returns the table's rows (chip_smoke.py runs each once).
+returns the table's rows (chip_smoke.py runs each once); inside
+:func:`untimed` it walks its probe's path once and times nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -77,11 +79,31 @@ def device_or_exit(args) -> Optional[str]:
     return args.device
 
 
+_untimed = False
+
+
+@contextlib.contextmanager
+def untimed():
+    """Inside, :func:`time_ms` calls its function once and returns NaN: a
+    probe's ``measure()`` then makes each call of its path once, so the
+    launches it counts do not depend on how often the timer repeats a
+    window."""
+    global _untimed
+    _untimed = True
+    try:
+        yield
+    finally:
+        _untimed = False
+
+
 def time_ms(fn: Callable[[], object], device: str, names: Sequence[str] = (),
             per_call: int = 1, reps: int = 25) -> float:
     """ms of one call: on the card the device time of the CUDA functions
     ``names`` (or of every device event), utils.profiling.device_ms; on the
     CPU the host clock's median of 3 calls."""
+    if _untimed:
+        fn()
+        return float("nan")
     if device == "cuda":
         from cvsteer_tpu_torch.utils.profiling import device_ms
 

@@ -78,6 +78,15 @@ def test_torch_cli_vo_refuses_unported_modes(tmp_path):
         main(["--input", str(FIXTURE), "--checkpoint-dir", str(tmp_path)])
 
 
+def test_torch_features_g4_refusal_names_what_is_missing():
+    """G4 features raise, naming the generic detector path and the G4
+    descriptors that are still to port (the G4/H4 bank is ported)."""
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig, extract_features
+
+    with pytest.raises(NotImplementedError, match="generic detector path.*phase_descriptors_g4"):
+        extract_features(torch.zeros((32, 32)), cfg=FrontendConfig(order=4))
+
+
 @pytest.mark.parametrize(
     "field,value",
     [("loop_closure", True), ("loop_closure_sim3", True), ("speed_prior_band", (0.5, 2.0)),

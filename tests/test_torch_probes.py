@@ -445,6 +445,34 @@ def test_torch_profiling_kernel_names():
     assert profiling.kernel_named("_ZN12_GLOBAL__N_111maps_kernelE", "maps_kernel")
 
 
+def test_torch_profiling_kernel_names_of_kernels_b_and_f():
+    """The names chip_smoke.py times kernels B and F by match their template
+    instantiations and nothing else of the library."""
+    assert profiling.kernel_named("void (anonymous namespace)::pyr_down_kernel<3, true>(float const*)",
+                                  "pyr_down_kernel")
+    assert profiling.kernel_named("void (anonymous namespace)::adj_kernel<4>(float const*)", "adj_kernel")
+    assert not profiling.kernel_named("void (anonymous namespace)::filter_bank_kernel<4>(float const*)",
+                                      "adj_kernel")
+
+
+def test_torch_probes_untimed_walks_each_call_once():
+    """Inside probes.untimed() the probes' timer calls its function once and
+    returns NaN, so a measure() makes each call of its path once (phase 8's
+    launch counts); outside it times as before."""
+    from cvsteer_tpu_torch import probes
+    from cvsteer_tpu_torch.probes import profile_v2_stages
+
+    calls = []
+    with probes.untimed():
+        assert np.isnan(probes.time_ms(lambda: calls.append(1), "cuda", ("maps_kernel",)))
+    assert calls == [1]
+    assert not np.isnan(probes.time_ms(lambda: calls.append(1), "cpu"))
+    assert len(calls) == 4  # the host clock's median of 3
+    with probes.untimed():
+        res = profile_v2_stages.measure("cpu", batch=1, size=16)
+    assert all(np.isnan(us) for _, us in res["stages"]) and np.isnan(res["entry_us"])
+
+
 @pytest.mark.parametrize("names, per_call", [((), None), (("maps_kernel",), 2)])
 def test_torch_device_ms_retries_empty_windows(monkeypatch, capsys, names, per_call):
     """device_ms takes a window the profiler left empty again, uses the
