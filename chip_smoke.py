@@ -30,6 +30,19 @@ Phases (any failure exits non-zero and prints no result line):
              geometry, and the front-end's launches per frame (B 1, C 1,
              D 1, A 0); then a second run profiled over 5 warm frames:
              device kernels per frame, device busy share, features span.
+5b. VO device — the same 40 frames through the device-resident engine,
+             cvsteer_tpu_torch.slam.vo_device.DeviceVO(VOConfig(),
+             device="cuda").process_image (the loop of cli_vo --engine
+             device; phase 5's frames, no decode span); check
+             initialization, one pose per frame, the ATE against the same
+             bound and within 0.01 m of phase 5's ATE, the trajectory
+             within 0.03 m of the host engine's (Sim(3)-aligned), the host
+             engine's poses (1e-4 m) on every frame before the first
+             promotion on the device, B, C, D one launch per frame, and exactly 2 CUDA
+             graphs captured, none after the first upload; print frames/s,
+             the features / track / keyframe / capture spans, the device ms
+             of one replay of T (track) and of P (promote), and the same
+             profiled window as phase 5 for this engine.
 6. CLI     — cvsteer_tpu_torch.cli.main on a list of the 64 frames and one
              unreadable entry, with --filters g2 and then g4 (default
              --batch 16): 192 PNGs per run, each within 1 gray level of the
@@ -49,7 +62,7 @@ Phases (any failure exits non-zero and prints no result line):
              measures once; then kernels G (rows, patches), S and V bit for
              bit and M within its stated tolerance against their plain
              versions, at those shapes and ragged ones, timed as in phase 4.
-Each path phase (5-8) sets the launch counts to 0 just before it and reads
+Each path phase (5-8, 5b) sets the launch counts to 0 just before it and reads
 them just after. The line before the last is the per-kernel JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -57,6 +70,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -83,6 +97,7 @@ CLI_FRAMES, CLI_HW, CLI_BATCH = 64, (512, 512), 16
 MAPS = ("edges", "lines_dark", "lines_bright")
 PATH_KERNELS = {  # phase -> the kernels its path must launch
     "vo": ("pyr_down", "g2_features_full", "desc_sample"),
+    "vo_device": ("pyr_down", "g2_features_full", "desc_sample"),
     "cli_g2": ("g2_maps",),
     "cli_g4": ("g4_maps",),
     "pyramid": ("filter_bank", "pyr_down", "filter_bank_adj"),
@@ -99,6 +114,11 @@ LAUNCHES_FROM = {  # kernel -> the phase whose launch count the JSON line report
     **{k: "probes" for k in PATH_KERNELS["probes"]},
 }
 VO_PROFILE_WARM, VO_PROFILE_FRAMES = 10, 5
+VO_TWIN_ATE = 0.01  # the device engine's ATE against the host engine's, m (tests/test_vo_device.py)
+# the two engines' trajectories (Sim(3)-aligned), m: they read 0.0144 apart on
+# an H100, the gap opening at the first window BA on the device (PERF.md §6)
+VO_TWIN_GAP = 0.03
+VO_SAME_POSE = 1e-4  # camera centers before the first device promotion: the same arithmetic, m
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "cvsteer_tpu_torch", "io", "golden")
 
@@ -548,6 +568,8 @@ def run_vo(n_frames: int, seed: int):
     state = init_vo(cfg, device="cuda")
     timer = StepTimer(sync=torch.cuda.synchronize)
     state.timer = timer
+    raw = []  # each frame's pose as tracked, before finalize re-anchors it
+    images = []  # kept for phase 5b
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for k in range(n_frames):  # the loop of cli_vo.main
@@ -555,6 +577,8 @@ def run_vo(n_frames: int, seed: int):
             img = seq.render(k)
         with timer.span("vo"):
             state = process_image(state, img)
+        raw.append(state.trajectory[-1][1:])
+        images.append(img)
     state = finalize(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -568,13 +592,30 @@ def run_vo(n_frames: int, seed: int):
     return dict(
         state=state, launches=launches, ate=ate, gate=gate, wall_s=wall,
         vo_s=timer.total_s["vo"], means_ms=timer.means_ms(), frames=frames,
-        finite=bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
+        finite=bool(np.isfinite(Rs).all() and np.isfinite(ts).all()), raw=raw, images=images,
     )
 
 
-def profile_vo(seed: int) -> dict:
-    """The VO's device picture: a second run of the default VO, warmed up
-    over VO_PROFILE_WARM frames, then VO_PROFILE_FRAMES frames inside
+@functools.lru_cache(maxsize=None)
+def _profile_frames(seed: int):
+    """The profiled runs' frames: the default camera's scene over
+    VO_PROFILE_WARM + VO_PROFILE_FRAMES frames, rendered once for both
+    engines."""
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+
+    K = VOConfig().intrinsics
+    n = VO_PROFILE_WARM + VO_PROFILE_FRAMES
+    seq = PlanesSequence(n_frames=n, image_hw=(480, 640), fx=K.fx, fy=K.fy, cx=K.cx, cy=K.cy,
+                         seed=seed)
+    with ThreadPoolExecutor(8) as pool:
+        return tuple(pool.map(seq.render, range(n)))
+
+
+def profile_vo(seed: int, engine: str = "host") -> dict:
+    """The VO's device picture: a second run of the default VO (``engine``
+    "host", slam.vo, or "device", slam.vo_device), warmed up over
+    VO_PROFILE_WARM frames, then VO_PROFILE_FRAMES frames inside
     torch.profiler. Returns device
     kernels and copies/memsets per frame, the device busy share of the
     window's host-clock time, the mean ``features`` span and the device ms
@@ -583,26 +624,28 @@ def profile_vo(seed: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from cvsteer_tpu_torch.io.render import PlanesSequence
     from cvsteer_tpu_torch.slam.vo import VOConfig, init_vo, process_image
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
     from cvsteer_tpu_torch.utils.metrics import StepTimer
     from cvsteer_tpu_torch.utils.profiling import device_time_attr, kernel_named
 
     cfg = VOConfig()
-    K = cfg.intrinsics
     n = VO_PROFILE_WARM + VO_PROFILE_FRAMES
-    seq = PlanesSequence(n_frames=n, image_hw=(480, 640), fx=K.fx, fy=K.fy, cx=K.cx, cy=K.cy,
-                         seed=seed)
-    frames = [seq.render(k) for k in range(n)]
-    state = init_vo(cfg, device="cuda")
+    frames = _profile_frames(seed)
+    if engine == "device":
+        vo = DeviceVO(cfg, device="cuda")
+        state, step = vo.state, vo.process_image
+    else:  # the host engine steps its state in place
+        state = init_vo(cfg, device="cuda")
+        step = lambda img: process_image(state, img)  # noqa: E731
     for k in range(VO_PROFILE_WARM):
-        state = process_image(state, frames[k])
+        step(frames[k])
     state.timer = timer = StepTimer(sync=torch.cuda.synchronize)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in range(VO_PROFILE_WARM, n):
-            state = process_image(state, frames[k])
+            step(frames[k])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     attr = device_time_attr()
@@ -626,6 +669,70 @@ def profile_vo(seed: int) -> dict:
         wall_ms_per_frame=1e3 * wall_s / VO_PROFILE_FRAMES,
         features_ms=timer.means_ms().get("features", float("nan")),
         frontend_kernel_ms=per_kernel,
+    )
+
+
+def run_vo_device(n_frames: int, seed: int, host: dict) -> dict:
+    """Phase 5b: the device-resident engine on phase 5's frames (``host``:
+    phase 5's result, its images included, so no decode span), on the
+    card; then the device time of one replay of each of its two graphs."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.evaluate import ate_rmse
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+    from cvsteer_tpu_torch.utils.metrics import StepTimer
+    from cvsteer_tpu_torch.utils.profiling import call_ms, device_ms
+
+    cfg = VOConfig()
+    K = cfg.intrinsics
+    seq = PlanesSequence(n_frames=n_frames, image_hw=(480, 640), fx=K.fx, fy=K.fy,
+                         cx=K.cx, cy=K.cy, seed=seed)
+    vo = DeviceVO(cfg, device="cuda")
+    timer = StepTimer(sync=torch.cuda.synchronize)
+    vo.state.timer = timer
+    captures, raw, first_promotion = [], [], None
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k, img in enumerate(host["images"]):  # the loop of cli_vo.main --engine device
+        with timer.span("vo"):
+            vo.process_image(img)
+        captures.append(vo.captures)
+        raw.append(vo.state.trajectory[-1][1:])
+        if first_promotion is None and timer.count.get("keyframe", 0):
+            first_promotion = k
+    state = vo.finalize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    Rs, ts = state.poses()
+    gR, gt = seq.gt_arrays()
+    frames = [fi for fi, _, _ in state.trajectory]
+    whole = len(frames) == n_frames
+    ate = ate_rmse(Rs, ts, gR[frames], gt[frames]) if whole else float("nan")
+    twin = ate_rmse(Rs, ts, *host["state"].poses()) if whole else float("nan")
+    # the frames before the first promotion on the device ran the same
+    # bootstrap and the same tracking arithmetic as the host engine
+    upto = first_promotion if first_promotion is not None else n_frames
+    same = [np.abs(Ra.T @ ta - Rb.T @ tb).max()  # camera centers -R^T t
+            for (Ra, ta), (Rb, tb) in zip(raw[:upto], host["raw"][:upto])]
+    # one replay of each graph, on the run's final map (the run is over:
+    # repeating P keeps shifting the ring, with the same fixed shapes)
+    replay = {}
+    for name, half in (("T", 0), ("P", 1)):
+        fn = lambda h=half: vo._run_half(h)  # noqa: E731
+        ms, seen = device_ms(fn)
+        replay[name] = dict(device_ms=ms, events_per_replay=seen, call_ms=call_ms(fn))
+    return dict(
+        state=state, launches=launches, ate=ate, twin_ate=twin, gate=ate_bound(seq, state, cfg),
+        wall_s=wall, vo_s=timer.total_s["vo"], means_ms=timer.means_ms(), frames=frames,
+        finite=bool(np.isfinite(Rs).all() and np.isfinite(ts).all()), captures=captures,
+        replay=replay, keyframes=timer.count.get("keyframe", 0), first_promotion=first_promotion,
+        max_pose_diff_before=float(max(same, default=math.inf)),
     )
 
 
@@ -1068,6 +1175,58 @@ def main(argv=None) -> int:
         checks["VO profile: device time seen"] = prof["busy_share"] > 0
         launches = {"vo": res["launches"]}
 
+        # 5b. VO device
+        dres = run_vo_device(args.frames, args.seed, res)
+        dst, caps = dres["state"], dres["captures"]
+        print(
+            f"VO device: {n} frames 480x640 in {dres['vo_s']:.2f} s of VO time "
+            f"({n / dres['vo_s']:.2f} frames/s; {dres['wall_s']:.2f} s wall, phase 5's frames); "
+            f"keyframes {len(dst.keyframes)} ({dres['keyframes']} promoted on the device), "
+            f"landmarks {dst.num_landmarks}"
+        )
+        print("VO device phase ms (mean per call): " + json.dumps(
+            {k: round(v, 3) for k, v in dres["means_ms"].items()}
+        ))
+        print(f"VO device: ATE {dres['ate']:.4f} m, bound {dres['gate']['bound']:.4f} m; host "
+              f"engine {res['ate']:.4f} m (bar on the difference {VO_TWIN_ATE}); the two "
+              f"trajectories {dres['twin_ate']:.6f} m apart (bar {VO_TWIN_GAP}); "
+              f"poses before the first promotion on the device (frame {dres['first_promotion']}) "
+              f"within {dres['max_pose_diff_before']:.3e} m of the host engine's")
+        print(f"VO device: graphs captured {caps[-1]}, first at frame "
+              f"{next((i for i, c in enumerate(caps) if c), None)}; launches {dres['launches']}")
+        for graph, r in dres["replay"].items():
+            how = ("torch.profiler" if r["events_per_replay"]
+                   else "CUDA events around the replay: the profiler saw no kernel in it")
+            print(f"VO device graph {graph}: {r['device_ms']:.4f} ms device per replay ({how}; "
+                  f"{r['events_per_replay']:.0f} device events per replay); "
+                  f"{r['call_ms']:.4f} ms per replay with the wait (CUDA events)")
+        checks.update({
+            "VO device: initialized": dst.initialized,
+            "VO device: one pose per frame": dres["frames"] == list(range(n)),
+            "VO device: finite poses": dres["finite"],
+            "VO device: ATE within bound": dres["ate"] < dres["gate"]["bound"],
+            "VO device: as accurate as the host engine": abs(dres["ate"] - res["ate"]) < VO_TWIN_ATE,
+            "VO device: the host engine's trajectory": dres["twin_ate"] < VO_TWIN_GAP,
+            "VO device: the host engine's poses until its first promotion": (
+                dres["first_promotion"] is not None and dres["max_pose_diff_before"] < VO_SAME_POSE),
+            "VO device: kernels B-D launched": all(dres["launches"][k] > 0
+                                                   for k in PATH_KERNELS["vo_device"]),
+            "VO device: launches per frame": all(dres["launches"][k] == v * n
+                                                 for k, v in VO_LAUNCHES_PER_FRAME.items()),
+            "VO device: 2 graphs, none after the first upload": (
+                caps[-1] == 2 and set(caps) <= {0, 2} and caps == sorted(caps)),
+            "VO device: promotions ran on the device": dres["keyframes"] > 0,
+        })
+        dprof = profile_vo(args.seed, engine="device")
+        print(f"VO device profile, frames {VO_PROFILE_WARM}-{VO_PROFILE_WARM + VO_PROFILE_FRAMES - 1} "
+              f"of a second run (torch.profiler): {dprof['kernels_per_frame']:.1f} device kernels, "
+              f"{dprof['copies_per_frame']:.1f} copies/memsets per frame; device busy "
+              f"{100 * dprof['busy_share']:.2f} % of {dprof['wall_ms_per_frame']:.2f} ms per frame; "
+              f"features span {dprof['features_ms']:.3f} ms; kernels B-D device ms per frame "
+              f"{dprof['frontend_kernel_ms']}")
+        checks["VO device profile: device time seen"] = dprof["busy_share"] > 0
+        launches["vo_device"] = dres["launches"]
+
         # 6. CLI
         runs, cli_checks = run_cli(frames512, paths, workdir)
         checks.update(cli_checks)
@@ -1097,6 +1256,8 @@ def main(argv=None) -> int:
         phase = LAUNCHES_FROM[r["name"]]
         r["launches"] = launches[phase][r["name"]] if phase else 0
         r["launches_from"] = phase
+        if r["name"] in PATH_KERNELS["vo_device"]:
+            r["launches_vo_device"] = launches["vo_device"][r["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,

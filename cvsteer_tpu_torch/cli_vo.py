@@ -1,15 +1,18 @@
 """cvsteer-vo on PyTorch: monocular visual odometry over an image sequence.
 
-The port of cvsteer_tpu.cli_vo's single-stream host engine: run the
+The port of cvsteer_tpu.cli_vo's single-stream path: run the
 steerable-front-end VO (keyframing + windowed Schur BA) over a TUM-RGBD
 sequence, a KITTI odometry sequence or a plain image directory; report ATE
 RMSE when ground truth is present; write the trajectory in TUM format.
+``--engine host`` (the default) runs slam.vo; ``--engine device`` runs
+slam.vo_device, the device-resident engine (two captured CUDA graphs per
+frame on a card, the same steps eagerly with ``--device cpu``).
 
   python -m cvsteer_tpu_torch.cli_vo --input <seq_dir> --set slam.window=10 \
-      --output traj.txt --device cuda
+      --output traj.txt --engine device --device cuda
 
-Not ported yet (each raises): ``--engine device`` (the device-resident
-engine), several comma-separated inputs (serving), ``--checkpoint-dir``.
+Not ported yet (each raises): several comma-separated inputs (serving),
+``--checkpoint-dir``.
 """
 
 from __future__ import annotations
@@ -39,10 +42,6 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.engine == "device":
-        raise NotImplementedError(
-            "--engine device (slam/vo_device.py) is not ported yet; use --engine host"
-        )
     roots = [p for p in args.input.split(",") if p]
     if not roots:
         print("no input sequences given", file=sys.stderr)
@@ -80,7 +79,14 @@ def main(argv=None) -> int:
         print("no images found", file=sys.stderr)
         return 1
 
-    state = init_vo(vo_config(cfg), device=args.device)
+    engine = None
+    if args.engine == "device":
+        from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+        engine = DeviceVO(vo_config(cfg), device=args.device)
+        state = engine.state
+    else:
+        state = init_vo(vo_config(cfg), device=args.device)
     timer = StepTimer(sync=torch.cuda.synchronize if args.device.startswith("cuda") else None)
     n_frames = 0
     for k in range(len(seq.image_paths)):
@@ -93,9 +99,13 @@ def main(argv=None) -> int:
             state.frame_count += 1
             continue
         with timer.span("vo"):
-            state = process_image(state, img)
+            if engine is not None:
+                engine.process_image(img)
+                state = engine.state
+            else:
+                state = process_image(state, img)
         n_frames += 1
-    state = finalize(state)
+    state = engine.finalize() if engine is not None else finalize(state)
 
     if args.output:
         _write_trajectory(args.output, state, seq)

@@ -14,6 +14,11 @@ stacked tensors are the natural layout.)
 
 Projection model: normalized pinhole u = (x/z, y/z). Gauge freedom is
 removed by freezing ``fixed_cameras``.
+
+Both solvers run inside the device engine's captured CUDA graphs
+(slam.vo_device): every tensor they make is made on the device (no copy
+from host memory), and the ``*_ex`` factorizations leave their status on
+the device, so nothing synchronizes the host.
 """
 
 from __future__ import annotations
@@ -225,7 +230,7 @@ def refine_pose(
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
     R, t = R0, t0
     cur = cost(BAState(R[None], t[None], X), problem)
-    lam = torch.tensor(lam0, dtype=X.dtype, device=X.device)
+    lam = torch.full((), lam0, dtype=X.dtype, device=X.device)
     for _ in range(iterations):
         J_c, _, r, w = _jacobians(BAState(R[None], t[None], X), problem)
         sw = torch.sqrt(w)[..., None, None]
@@ -261,7 +266,7 @@ def bundle_adjust(
     x(1/3)."""
     c0 = cost(state, problem)
     cur = c0
-    lam = torch.tensor(lam0, dtype=state.X.dtype, device=state.X.device)
+    lam = torch.full((), lam0, dtype=state.X.dtype, device=state.X.device)
     for _ in range(iterations):
         cand, cand_cost = ba_step(state, problem, lam)
         accept = cand_cost < cur

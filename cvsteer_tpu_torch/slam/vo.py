@@ -15,10 +15,11 @@ two-view initialization baseline (||t|| = 1).
 Ported here: everything the default VOConfig executes — init and two-view
 bootstrap, tracking with rescue, relocalization, keyframe decision and
 promotion, windowed BA, re-bootstrap, the record-only apply_speed_prior,
-``finalize``. Options outside that path (loop closure, Sim(3) closure, the
-speed-prior band, the ground prior, the motion model, flow-driven
-keyframing) raise
-NotImplementedError in :func:`init_vo`.
+``finalize`` — and the options both engines share with
+cvsteer_tpu_torch.slam.vo_device: the constant-velocity motion model
+(``motion_model``) and flow-driven keyframing (``kf_min_flow_px``). The
+other options (loop closure, Sim(3) closure, the speed-prior band, the
+ground prior) raise NotImplementedError in :func:`init_vo`.
 """
 
 from __future__ import annotations
@@ -96,6 +97,11 @@ class VOConfig(NamedTuple):
         f = 0.5 * (self.intrinsics.fx + self.intrinsics.fy)
         return float(self.rescue_radius_px) / max(f, 1e-6)
 
+    @property
+    def kf_min_flow_norm(self) -> float:
+        """Flow-promotion threshold in normalized units."""
+        f = 0.5 * (self.intrinsics.fx + self.intrinsics.fy)
+        return float(self.kf_min_flow_px) / max(f, 1e-6)
 
 
 @dataclasses.dataclass
@@ -105,6 +111,11 @@ class Keyframe:
     R: np.ndarray  # [3, 3] world->camera
     t: np.ndarray  # [3]
     landmark_ids: np.ndarray  # [N] int64, -1 = feature has no landmark
+    # slot-generation stamps paired with landmark_ids (device engine only:
+    # it reuses culled slots, and a stamp that differs from the slot's
+    # generation marks an id whose slot now holds another landmark); None
+    # on host-engine keyframes, whose culled ids are cleared at once
+    landmark_gens: Optional[np.ndarray] = None
     # landmark ids freshly triangulated at this keyframe's promotion
     fresh_ids: Optional[np.ndarray] = None
     # lazily computed global descriptor (keyframe_signature)
@@ -141,7 +152,8 @@ class VOState:
     kf_baselines: List[float] = dataclasses.field(default_factory=list)
     # diagnostic event log (None = off)
     diag: Optional[list] = dataclasses.field(default=None, repr=False)
-    # per-phase timer (None = off): spans "features", "track", "keyframe"
+    # per-phase timer (None = off): spans "features", "track", "keyframe",
+    # "init", and "capture" (the device engine's one-time graph capture)
     timer: Optional[StepTimer] = dataclasses.field(default=None, repr=False)
 
     def poses(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -156,8 +168,6 @@ _NOT_PORTED = (
     ("loop_closure_sim3", False, "Sim(3) loop closure is ported in a later PR"),
     ("speed_prior_band", (0.0, 0.0), "the speed-prior band is ported with loop closure in a later PR"),
     ("ground_height_m", 0.0, "the ground-plane prior is ported with loop closure in a later PR"),
-    ("motion_model", False, "the constant-velocity motion model is ported with the device engine in a later PR"),
-    ("kf_min_flow_px", 0.0, "flow-driven keyframing is ported with the device engine in a later PR"),
 )
 
 
@@ -196,22 +206,26 @@ def _normalize(yx: torch.Tensor, K: Intrinsics) -> torch.Tensor:
 
 @precise()
 def _track_fused(
-    desc_a, valid_a, X_slots, sel_slots, yx_b, desc_b, valid_b, R1, t1, K: Intrinsics,
-    *, ratio, iterations, huber_delta, min_track, rescue_radius=0.0, rescue_min_cos=0.6,
+    desc_a, valid_a, X_slots, sel_slots, yx_a, yx_b, desc_b, valid_b, R0, t0, R1, t1,
+    K: Intrinsics, *, ratio, iterations, huber_delta, min_track, dual_init=False,
+    rescue_radius=0.0, rescue_min_cos=0.6, kf_min_flow=0.0,
 ):
     """The steady-state tracking step: match to the keyframe, pair matched
     features with the keyframe-slot landmark mirror, motion-only PnP from
-    the keyframe pose (R1, t1), then the projective rescue and a short
-    re-refine. Returns device tensors (R, t, n_inliers, idx, n_valid,
-    uv_all, valid_b)."""
+    the prediction (R0, t0) — and, with ``dual_init``, from the keyframe
+    pose (R1, t1) too, keeping the better — then the projective rescue and
+    a short re-refine. With ``kf_min_flow > 0`` it also returns the median
+    displacement of the matched keyframe features (normalized units; 0.0
+    otherwise) for the flow-driven keyframe rule. Returns device tensors
+    (R, t, n_inliers, idx, n_valid, uv_all, valid_b, flow)."""
     idx = match_descriptors(desc_a, valid_a, desc_b, valid_b, ratio=ratio).index
     use = (idx >= 0) & sel_slots
     uv_all = _normalize(yx_b, K)
     uv = torch.where(use[:, None], uv_all[torch.clamp_min(idx, 0)], 0.0)
     Ra, ta, na = vo_core.pnp_dual_refine(
-        X_slots, uv, use, R1, t1, R1, t1,
+        X_slots, uv, use, R0, t0, R1, t1,
         iterations=iterations, huber_delta=huber_delta,
-        min_track=min_track, dual_init=False,
+        min_track=min_track, dual_init=dual_init,
     )
     if float(rescue_radius) > 0.0:
         idx = vo_core.guided_rescue(
@@ -225,7 +239,11 @@ def _track_fused(
             iterations=max(iterations // 2, 4), huber_delta=huber_delta,
             min_track=min_track, dual_init=False,
         )
-    return Ra, ta, na, idx, valid_b.sum(), uv_all, valid_b
+    if float(kf_min_flow) > 0.0:
+        flow = vo_core.median_flow(_normalize(yx_a, K), valid_a, uv_all, idx)
+    else:
+        flow = torch.zeros((), dtype=uv_all.dtype, device=uv_all.device)
+    return Ra, ta, na, idx, valid_b.sum(), uv_all, valid_b, flow
 
 
 @precise()
@@ -435,28 +453,55 @@ def _append_traj(state: VOState, R, t) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _predict_pose(state: VOState):
+    """Constant-velocity prediction: the last inter-frame motion applied to
+    the latest pose; the keyframe pose when the recent trajectory is not
+    finite or its motion exceeds vo_core.MAX_PRED_ROT_DEG /
+    MAX_PRED_SHIFT (a bad track must not feed diverging predictions)."""
+    kf = state.keyframes[-1]
+    if len(state.trajectory) < 2:
+        return kf.R, kf.t
+    _, R1, t1 = state.trajectory[-1]
+    _, R0, t0 = state.trajectory[-2]
+    if not (np.isfinite(R1).all() and np.isfinite(t1).all()
+            and np.isfinite(R0).all() and np.isfinite(t0).all()):
+        return kf.R, kf.t
+    R_rel = R1 @ R0.T
+    t_rel = t1 - R_rel @ t0
+    cos = np.clip(0.5 * (np.trace(R_rel) - 1.0), -1.0, 1.0)
+    if (
+        np.degrees(np.arccos(cos)) > vo_core.MAX_PRED_ROT_DEG
+        or np.linalg.norm(t_rel) > vo_core.MAX_PRED_SHIFT
+    ):
+        return kf.R, kf.t
+    return (R_rel @ R1).astype(np.float32), (R_rel @ t1 + t_rel).astype(np.float32)
+
+
 def _track(state: VOState, feats: Features):
     """Match to the last keyframe's landmark-bearing features; PnP refine.
     Returns host values (R, t, n_tracked, idx, valid, n_valid, x_new,
-    fvalid)."""
+    fvalid, flow)."""
     cfg = state.config
     kf = state.keyframes[-1]
     X_dev, sel_dev = _kf_track_cache(state, kf)
-    R1, t1 = _dev(state, kf.R), _dev(state, kf.t)
+    Rp, tp = _predict_pose(state) if cfg.motion_model else (kf.R, kf.t)
+    dual = cfg.motion_model and not (np.array_equal(Rp, kf.R) and np.array_equal(tp, kf.t))
     out = _track_fused(
-        kf.features.desc, kf.features.valid, X_dev, sel_dev,
-        feats.yx, feats.desc, feats.valid, R1, t1, cfg.intrinsics,
+        kf.features.desc, kf.features.valid, X_dev, sel_dev, kf.features.yx,
+        feats.yx, feats.desc, feats.valid, _dev(state, Rp), _dev(state, tp),
+        _dev(state, kf.R), _dev(state, kf.t), cfg.intrinsics,
         ratio=cfg.match_ratio, iterations=10, huber_delta=cfg.huber_delta,
-        min_track=cfg.track_min_landmarks,
+        min_track=cfg.track_min_landmarks, dual_init=dual,
         rescue_radius=cfg.rescue_radius_norm, rescue_min_cos=cfg.rescue_min_cos,
+        kf_min_flow=cfg.kf_min_flow_norm,
     )
-    R, t, n, idx, n_valid, uv_all, valid_b = (_host(a) for a in out)
+    R, t, n, idx, n_valid, uv_all, valid_b, flow = (_host(a) for a in out)
     n_tracked = int(n)
     if not (np.isfinite(R).all() and np.isfinite(t).all()):
         R, t, n_tracked = kf.R.copy(), kf.t.copy(), 0
     return (
         R, t, n_tracked, idx, idx >= 0, int(n_valid),
-        uv_all.astype(np.float32), valid_b,
+        uv_all.astype(np.float32), valid_b, float(flow),
     )
 
 
@@ -662,7 +707,7 @@ def _add_keyframe(
     state.track_version += 1
 
 
-def _decide_keyframe(state: VOState, feats, R, t, n_tracked, idx, valid, n_valid):
+def _decide_keyframe(state: VOState, feats, R, t, n_tracked, idx, valid, n_valid, flow=0.0):
     """Relocalization fallback + trajectory append + keyframe decision.
     Returns (R, t, idx, valid, ref_kf) when the frame should become a
     keyframe, else None."""
@@ -685,7 +730,12 @@ def _decide_keyframe(state: VOState, feats, R, t, n_tracked, idx, valid, n_valid
     _append_traj(state, R, t)
 
     gap = state.frame_count - state.keyframes[-1].index
-    needs_kf = n_tracked < state.config.track_min_landmarks or gap >= state.config.kf_max_gap
+    flow_thresh = state.config.kf_min_flow_norm
+    needs_kf = (
+        n_tracked < state.config.track_min_landmarks
+        or gap >= state.config.kf_max_gap
+        or (flow_thresh > 0.0 and flow > flow_thresh)
+    )
     if needs_kf and n_valid >= 16:  # never promote a featureless frame
         return R, t, idx, valid, ref_kf
     return None
@@ -723,10 +773,10 @@ def apply_speed_prior(state: VOState) -> bool:
 
 
 def _post_track(state: VOState, feats, R, t, n_tracked, idx, valid, n_valid,
-                x_new=None, fvalid=None) -> VOState:
+                x_new=None, fvalid=None, flow=0.0) -> VOState:
     """Everything after the tracking fetch: relocalization fallback,
     trajectory append, keyframe promotion."""
-    req = _decide_keyframe(state, feats, R, t, n_tracked, idx, valid, n_valid)
+    req = _decide_keyframe(state, feats, R, t, n_tracked, idx, valid, n_valid, flow=flow)
     if req is not None:
         R2, t2, idx2, valid2, ref_kf = req
         with _span(state, "keyframe"):
@@ -800,10 +850,14 @@ def finalize(state: VOState) -> VOState:
     return state
 
 
-def process_image(state: VOState, image) -> VOState:
-    """Extract features from ``image [H, W]`` (numpy or tensor, 0..255
-    scale; uint8 is cast on the device) and advance VO by one frame."""
+def image_features(state: VOState, image) -> Features:
+    """Features of ``image [H, W]`` (numpy or tensor, 0..255 scale; uint8
+    is cast on the device) on state.device, timed as the "features" span."""
     with _span(state, "features"):
         img = torch.as_tensor(image).to(state.device).to(torch.float32)
-        feats = extract_features(img, cfg=state.config.frontend)
-    return process_frame(state, feats)
+        return extract_features(img, cfg=state.config.frontend)
+
+
+def process_image(state: VOState, image) -> VOState:
+    """Extract features from ``image [H, W]`` and advance VO by one frame."""
+    return process_frame(state, image_features(state, image))

@@ -1,7 +1,12 @@
 """Shared VO numeric rules (twin of the default-path pieces of
 cvsteer_tpu.slam.vo_core): dual-init PnP, projective rescue, the
-triangulation gate, the per-landmark reprojection signal and the culling
-bar, with the reference's constants."""
+triangulation gate, the median matched flow, the per-landmark reprojection
+signal and the culling bar, with the reference's constants.
+
+Every rule here also runs inside the device engine's captured CUDA graphs
+(slam.vo_device), so none reads a tensor on the host, indexes with a 0-dim
+tensor or assigns a Python scalar through an index (a host-to-device copy
+that a capturing stream refuses)."""
 
 from __future__ import annotations
 
@@ -56,9 +61,9 @@ def guided_rescue(
     ``min_sim``. Rescues never displace ratio matches or claimed frame
     features. Returns the merged match index [A]."""
     B = desc_b.shape[0]
-    claimed = torch.zeros(B + 1, dtype=torch.bool, device=idx.device)
-    claimed[torch.where(idx >= 0, idx, B)] = True
-    claimed = claimed[:B]
+    claimed = torch.zeros(B + 1, dtype=torch.bool, device=idx.device).index_put_(
+        (torch.where(idx >= 0, idx, B),), torch.ones_like(idx, dtype=torch.bool)
+    )[:B]
     p = X_slots @ R.T + t
     z = p[:, 2]
     uv_pred = p[:, :2] / torch.clamp_min(z[:, None], 1e-6)
@@ -76,6 +81,19 @@ def guided_rescue(
     hit = torch.gather(s, 1, best_j[:, None])[:, 0] > -2.0
     mutual = best_i[best_j] == torch.arange(s.shape[0], device=s.device)
     return torch.where(hit & mutual, best_j, idx)
+
+
+def median_flow(uv_kf, valid_kf, uv_new, idx):
+    """Median image displacement (normalized units) of the keyframe
+    features matched into the new frame (``idx [A]``, -1 = unmatched);
+    0.0 when none is matched. The flow-driven keyframe rule compares it
+    with VOConfig.kf_min_flow_norm."""
+    matched = (idx >= 0) & valid_kf
+    disp = torch.linalg.vector_norm(uv_kf - uv_new[torch.clamp_min(idx, 0)], dim=-1)
+    d = torch.where(matched, disp, torch.inf)
+    cnt = matched.sum()
+    med = torch.sort(d).values.gather(0, (cnt // 2).reshape(1))[0]
+    return torch.where(cnt > 0, med, 0.0)
 
 
 def triangulation_gate(Xc, P1, P2, min_ray_angle_deg: float = 1.0):

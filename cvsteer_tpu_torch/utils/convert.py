@@ -1,7 +1,8 @@
 """Carry the reference package's parameters and state into the port.
 
-The system has no weights: its parameters are tap banks and configs, and
-its per-frame state is a Features set. These helpers take the reference
+The system has no weights: its parameters are tap banks and configs, its
+per-frame state is a Features set, and the device VO engine carries a
+DeviceMap from frame to frame. These helpers take the reference
 package's values as plain Python/numpy objects (NamedTuples, numpy or
 array-like fields; anything with the same field names) and build the port's
 types, so tests feed both packages identical inputs. Nothing here imports
@@ -19,6 +20,7 @@ from cvsteer_tpu_torch.filters.g4 import G4Bank
 from cvsteer_tpu_torch.filters.taps import SeparableBank
 from cvsteer_tpu_torch.geometry.camera import Intrinsics
 from cvsteer_tpu_torch.slam.vo import VOConfig
+from cvsteer_tpu_torch.slam.vo_device import DeviceMap
 
 
 def separable_bank(bank) -> SeparableBank:
@@ -82,3 +84,24 @@ def vo_config(c) -> VOConfig:
     kw["intrinsics"] = intrinsics(c.intrinsics)
     kw["frontend"] = frontend_config(c.frontend)
     return VOConfig(**kw)
+
+
+_MAP_DTYPES = dict(
+    X=torch.float32, lm_valid=torch.bool, lm_gen=torch.int32, kf_uv=torch.float32,
+    kf_fvalid=torch.bool, kf_obs=torch.int32, kf_R=torch.float32, kf_t=torch.float32,
+    kf_live=torch.bool, kf_desc=torch.float32, lm_desc=torch.float32, sig=torch.float32,
+    sig_n=torch.int32, since_kf=torch.int32, ground_hist=torch.float32,
+)
+
+
+def device_map(m, device="cuda") -> DeviceMap:
+    """A reference DeviceMap (arrays of any array type; None fields stay
+    None) -> the port's, on ``device``. Descriptors become float32, the
+    port's descriptor type."""
+    return DeviceMap(**{
+        f: None if getattr(m, f, None) is None else torch.as_tensor(
+            np.array(getattr(m, f), dtype=np.float32 if _MAP_DTYPES[f].is_floating_point else None),
+            dtype=_MAP_DTYPES[f], device=device,
+        )
+        for f in DeviceMap._fields
+    })

@@ -353,6 +353,96 @@ def test_torch_cuda_vo_step_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The device-resident VO engine's two captured graphs (slam.vo_device)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def device_vo():
+    """A DeviceVO on the card, 12 rendered frames in (initialized and
+    captured), with the 13th frame's features in its input buffers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the engine's steps are captured CUDA graphs")
+    from cvsteer_tpu_torch.features.frontend import extract_features
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    seq = PlanesSequence(n_frames=40)
+    vo = DeviceVO(VOConfig(), device="cuda")
+    for k in range(12):
+        vo.process_image(seq.render(k))
+    assert vo.map is not None and vo.captures == 2
+    feats = extract_features(torch.from_numpy(seq.render(12)).cuda())
+    io = vo._io
+    io.yx.copy_(feats.yx)
+    io.desc.copy_(feats.desc)
+    io.fvalid.copy_(feats.valid)
+    kf = vo.state.keyframes[-1]
+    io.pose.copy_(torch.from_numpy(np.concatenate([kf.R.reshape(9), kf.t])))
+    return vo
+
+
+def _engine_state(vo):
+    return [a.clone() for a in vo.map if a is not None] + [a.clone() for a in vo._io]
+
+
+def _run_from(vo, snap, half, eager):
+    """Restore the map and buffers to ``snap``, run ``half`` (0 = T,
+    1 = P) captured or eagerly, and return the map and buffers after."""
+    for dst, src in zip([a for a in vo.map if a is not None] + list(vo._io), snap):
+        dst.copy_(src)
+    vo._run_half(half, eager=eager)
+    torch.cuda.synchronize()
+    return _engine_state(vo)
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["T", "P"])
+def test_torch_cuda_vo_graphs_equal_eager_and_replay(device_vo, half):
+    """Each captured half gives the same map and outputs as the same half
+    run eagerly on the same carried-in state, bit for bit, and replaying it
+    twice on the same inputs gives the same again."""
+    vo = device_vo
+    snap = _engine_state(vo)
+    if half == 1:  # P consumes T's outputs
+        snap = _run_from(vo, snap, 0, eager=False)
+    eager = _run_from(vo, snap, half, eager=True)
+    first = _run_from(vo, snap, half, eager=False)
+    again = _run_from(vo, snap, half, eager=False)
+    names = [f for f, a in zip(vo.map._fields, vo.map) if a is not None] + list(vo._io._fields)
+    for name, e, a, b in zip(names, eager, first, again):
+        assert torch.equal(a, e), f"{name}: the graph differs from the eager half"
+        assert torch.equal(a, b), f"{name}: two replays differ"
+    _run_from(vo, snap, half, eager=False)
+
+
+def test_torch_cuda_vo_captures_twice_and_never_again():
+    """Two graphs after the first upload, none after 20 frames, and none
+    after a blackout forces the host path and a re-upload."""
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the engine's steps are captured CUDA graphs")
+    seq = PlanesSequence(n_frames=26)
+    vo = DeviceVO(VOConfig(), device="cuda")
+    for k in range(20):
+        vo.process_image(seq.render(k))
+    assert vo.initialized and vo.captures == 2
+    bufs = [a.data_ptr() for a in vo.map if a is not None]
+    for k in range(20, 22):  # blank frames: tracking is lost
+        vo.process_image(np.zeros((480, 640), np.float32))
+    assert not vo._host_dirty  # the lost frames synced and uploaded
+    for k in range(22, 26):
+        vo.process_image(seq.render(k))
+    st = vo.finalize()
+    assert vo.captures == 2
+    assert [a.data_ptr() for a in vo.map if a is not None] == bufs  # never rebound
+    assert len(st.trajectory) == 26 and np.isfinite(st.poses()[1]).all()
+
+
+# ---------------------------------------------------------------------------
 # The measurement probes' kernels G, S, V and M (ops.cuda_probes)
 # ---------------------------------------------------------------------------
 

@@ -5,7 +5,8 @@
 - chip_smoke.py fails, printing no result line, where there is no CUDA
   device, and in a directory that holds nothing else of the repository.
 - Entry points and options that are not ported yet raise instead of
-  silently doing something else.
+  silently doing something else; the entry points that default to the card
+  refuse to run without one.
 - The numpy-only image reader decodes the committed fixture exactly as
   OpenCV does.
 """
@@ -45,6 +46,7 @@ def test_torch_port_never_imports_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'cvsteer_tpu'))\n"
         "assert len(mods) >= 30, mods\n"
+        "assert 'cvsteer_tpu_torch.slam.vo_device' in mods, mods\n"
         "assert not bad, bad\n"
         "print('modules', len(mods))\n"
     )
@@ -70,12 +72,13 @@ def test_torch_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
 def test_torch_cli_vo_refuses_unported_modes(tmp_path):
     from cvsteer_tpu_torch.cli_vo import main
 
-    with pytest.raises(NotImplementedError):
-        main(["--input", str(FIXTURE), "--engine", "device"])
-    with pytest.raises(NotImplementedError):
-        main(["--input", f"{FIXTURE},{FIXTURE}"])
-    with pytest.raises(NotImplementedError):
-        main(["--input", str(FIXTURE), "--checkpoint-dir", str(tmp_path)])
+    for engine in ("host", "device"):
+        with pytest.raises(NotImplementedError):
+            main(["--input", f"{FIXTURE},{FIXTURE}", "--engine", engine])
+        with pytest.raises(NotImplementedError):
+            main(["--input", str(FIXTURE), "--checkpoint-dir", str(tmp_path), "--engine", engine])
+    if not torch.cuda.is_available():  # the card is the default: refuse without one
+        assert main(["--input", str(FIXTURE), "--engine", "device"]) == 2
 
 
 def test_torch_features_g4_refusal_names_what_is_missing():
@@ -90,11 +93,36 @@ def test_torch_features_g4_refusal_names_what_is_missing():
 @pytest.mark.parametrize(
     "field,value",
     [("loop_closure", True), ("loop_closure_sim3", True), ("speed_prior_band", (0.5, 2.0)),
-     ("ground_height_m", 1.5), ("motion_model", True), ("kf_min_flow_px", 20.0)],
+     ("ground_height_m", 1.5)],
 )
 def test_torch_vo_refuses_unported_options(field, value):
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    cfg = VOConfig()._replace(**{field: value})
     with pytest.raises(NotImplementedError, match="later PR"):
-        init_vo(VOConfig()._replace(**{field: value}), device="cpu")
+        init_vo(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="later PR"):
+        DeviceVO(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("motion_model", True), ("kf_min_flow_px", 20.0)])
+def test_torch_vo_engines_take_the_shared_options(field, value):
+    """The options that came with the device engine: both engines take them
+    (their parity with the JAX engine: tests/test_torch_vo_device_options.py)."""
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    cfg = VOConfig()._replace(**{field: value})
+    assert getattr(init_vo(cfg, device="cpu").config, field) == value
+    assert getattr(DeviceVO(cfg, device="cpu").state.config, field) == value
+
+
+def test_torch_vo_device_engine_refuses_without_the_card():
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: DeviceVO(device='cuda') runs")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        DeviceVO(VOConfig())
 
 
 def test_torch_imread_matches_opencv(tmp_path):
