@@ -56,13 +56,38 @@ Phases (any failure exits non-zero and prints no result line):
              g4_basis against autograd through the plain bank; kernels A, B
              and F launched (A's launch count in the JSON line is this
              phase's).
+9. loop    — (a) a deterministic closure on the synthetic feature world of
+             tests/test_loopclosure.py (built here with numpy): a 13-keyframe
+             circle that revisits its start with injected SE(3) drift through
+             loopclosure.close_loops (dense solver) on the card, then the
+             host engine (init_vo -> process_frame) around a 48-frame circle,
+             injected scale drift, close_loops_sim3 against close_loops on
+             copies of the drifted state; check >= 1 closure accepted, the
+             newest keyframe's rotation error halved and translation error cut
+             by 15 % (SE(3)), the keyframe ATE at least halved and Sim(3) better
+             than SE(3) on scale drift. (b) the campaign configuration of
+             scripts/slam_scale_run.py (Sim(3) closure, ground prior 1.5 m,
+             speed band (0.5, 2.0), window 12, 262,144 landmark slots) on
+             io.synth.CityLoop cut to a 40 m circuit and LOOP_FRAMES frames
+             (one lap ~754 frames, so the run revisits its start) through
+             DeviceVO(cfg, device="cuda").process_image, and the host engine
+             on its first LOOP_HOST_FRAMES frames; print frames/s, ATE
+             against ate_bound, keyframes, ground corrections, speed clamps,
+             closure events (attempted, accepted, sync and solve ms each),
+             captures, peak allocator memory, launches of B, C and D; check 2
+             graphs at the end, the ATE under its bound, B, C, D launched and
+             >= 1 ground correction (both engines), and B, C and D bit for bit
+             against their plain versions on the sequence's first frame at
+             this path's shapes (240x320 down to 15x20, upright descriptors:
+             phase 4's comparisons, frontend_agreement).
 8. probes  — each module of cvsteer_tpu_torch.probes (the port of the TPU
              probe scripts) walks its path once untimed at its script's
              shapes (the probes' paths, whose launches are counted), then
              measures once; then kernels G (rows, patches), S and V bit for
              bit and M within its stated tolerance against their plain
              versions, at those shapes and ragged ones, timed as in phase 4.
-Each path phase (5-8, 5b) sets the launch counts to 0 just before it and reads
+Phase 9 runs after phase 7 and before phase 8.
+Each path phase (5-9, 5b) sets the launch counts to 0 just before it and reads
 them just after. The line before the last is the per-kernel JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -103,6 +128,8 @@ PATH_KERNELS = {  # phase -> the kernels its path must launch
     "pyramid": ("filter_bank", "pyr_down", "filter_bank_adj"),
     "probes": ("probe_gather_rows", "probe_gather_patches", "probe_maps_stages",
                "probe_maps_variants", "probe_maps_mma"),
+    "loop": ("pyr_down", "g2_features_full", "desc_sample"),
+    "loop_host": ("pyr_down", "g2_features_full", "desc_sample"),
 }
 VO_LAUNCHES_PER_FRAME = {  # the VO front-end: one B, one C and one D per frame
     "filter_bank": 0, "pyr_down": 1, "g2_features_full": 1, "desc_sample": 1,
@@ -119,6 +146,13 @@ VO_TWIN_ATE = 0.01  # the device engine's ATE against the host engine's, m (test
 # an H100, the gap opening at the first window BA on the device (PERF.md §6)
 VO_TWIN_GAP = 0.03
 VO_SAME_POSE = 1e-4  # camera centers before the first device promotion: the same arithmetic, m
+# phase 9 (b): CityLoop at its own image size, focal length, noise and speed
+# per frame (~0.194 m), the circuit cut from 120 m to 40 m a side so that a
+# lap (~754 frames) ends inside the run; the campaign ran 4,200 frames
+LOOP_CITY = dict(n_frames=900, laps=1.2, side=40.0)
+LOOP_FRAMES = 900
+LOOP_HOST_FRAMES = 150
+LOOP_RENDER_WORKERS = 6
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "cvsteer_tpu_torch", "io", "golden")
 
@@ -271,6 +305,66 @@ def add_record(records, name, src, replaces, err, good, times, bound, **extra) -
     return bool(good)
 
 
+def diff(got, want):
+    """Max abs difference and bit equality of two lists of tensors (p3's
+    packed bits compare as its float values do)."""
+    import torch
+
+    e = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return e, all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def frontend_agreement(img, fcfg, bank) -> dict:
+    """Kernels B, C and D against their plain versions on one frame ``img
+    [1, H, W]`` (float32, on the card), called as extract_features(cfg=fcfg)
+    calls them: the whole pyramid in one B launch, every level's detector
+    maps in one C launch, then every level's keypoints (fcfg's capacity per
+    level, upright when fcfg.upright_desc) sampled in one D launch. Returns
+    (max abs error, bit-equal) per kernel name, C's agreement on which
+    pixels keep a keypoint, and the plain pyramid, the maps and D's inputs
+    for the caller's timings."""
+    import torch
+
+    from cvsteer_tpu_torch.features.descriptors import _rotated_grid_coords
+    from cvsteer_tpu_torch.features.keypoints import detect_keypoints_packed
+    from cvsteer_tpu_torch.ops import cuda_desc as cd
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    xt, yt = bank.xtaps, bank.ytaps
+    levels = [img]
+    for _ in range(fcfg.levels - 1):
+        levels.append(cf.pyr_down_plain(levels[-1]).contiguous())
+    out = dict(levels=levels, pyr_down=diff(cf.pyr_down_levels(img, len(levels))[1:], levels[1:]))
+
+    maps = cf.g2_features_levels(levels, xt, yt, threshold=fcfg.threshold,
+                                 nms_radius=fcfg.nms_radius)
+    err, bits, agree = 0.0, True, 1.0
+    for lv, ko in zip(levels, maps):
+        po = cf.g2_features_full_plain(lv, xt, yt, threshold=fcfg.threshold,
+                                       nms_radius=fcfg.nms_radius)
+        e, same = diff(ko, po)
+        err, bits = max(err, e), bits and same
+        sent = cf.P3_SENTINEL * 0.5
+        agree = min(agree, ((ko[0] > sent) == (po[0] > sent)).float().mean().item())
+    out.update(maps=maps, g2_features_full=(err, bits), p3_keep_agreement=agree)
+
+    ys_l, xs_l = [], []
+    for lvl, (p3, dy, dx, ct, st, _) in enumerate(maps):
+        kp = detect_keypoints_packed(p3, dy, dx, ct, st, max_keypoints=fcfg.level_capacity(lvl))
+        if fcfg.upright_desc:
+            kp = kp._replace(theta=torch.zeros_like(kp.theta))
+        ys, xs, _, _ = _rotated_grid_coords(kp, fcfg.descriptor_grid, fcfg.descriptor_spacing)
+        ys_l.append(ys)
+        xs_l.append(xs)
+    counts = [y.shape[1] for y in ys_l]
+    ys, xs = torch.cat(ys_l, 1).contiguous(), torch.cat(xs_l, 1).contiguous()
+    bases = [m[5] for m in maps]
+    out.update(bases=bases, ys=ys, xs=xs, counts=counts,
+               desc_sample=diff([cd.sample_patches_levels(bases, ys, xs, counts)],
+                                [cd.sample_patches_levels_plain(bases, ys, xs, counts)]))
+    return out
+
+
 def check_kernels(frame, frames512, fish):
     """Phase 4: each kernel against its plain version at its path's shapes.
     Returns (records, ok)."""
@@ -278,8 +372,7 @@ def check_kernels(frame, frames512, fish):
     import torch
     import torch.nn.functional as F
 
-    from cvsteer_tpu_torch.features.descriptors import _rotated_grid_coords
-    from cvsteer_tpu_torch.features.keypoints import detect_keypoints_packed
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig
     from cvsteer_tpu_torch.filters.g2 import g2_bank
     from cvsteer_tpu_torch.filters.g4 import g4_bank
     from cvsteer_tpu_torch.ops import cuda_desc as cd
@@ -290,9 +383,9 @@ def check_kernels(frame, frames512, fish):
     bank = g2_bank()
     xt, yt = bank.xtaps, bank.ytaps
     img = torch.from_numpy(frame).cuda()[None].contiguous()  # [1, 480, 640]
-    levels = [img]
-    for _ in range(4):
-        levels.append(cf.pyr_down_plain(levels[-1]).contiguous())
+    # B, C and D against their plain versions on the VO path of this frame
+    fe = frontend_agreement(img, FrontendConfig(), bank)
+    levels, per_level_out = fe["levels"], fe["maps"]
     shapes = [tuple(l.shape[-2:]) for l in levels]
     records, ok = [], True
 
@@ -350,11 +443,9 @@ def check_kernels(frame, frames512, fish):
     # row pass at the even columns and column pass at the even rows
     b5 = cf._BINOMIAL5.reshape(1, -1)
     conv = conv_bank(b5, b5, stride=2)
-    got = cf.pyr_down_levels(img, len(levels))
-    err, bits, lib_err, bound = 0.0, True, 0.0, Bound()
+    (err, bits), lib_err, bound = fe["pyr_down"], 0.0, Bound()
     bound.add(4 * img.numel(), 0)
-    for lv, g, w in zip(levels[:-1], got[1:], levels[1:]):
-        err, bits = max(err, (g - w).abs().max().item()), bits and torch.equal(g, w)
+    for lv, w in zip(levels[:-1], levels[1:]):
         lib_err = max(lib_err, (conv(lv)[:, 0] - w).abs().max().item())
         h, wd = lv.shape[-2:]
         ho, wo = -(-h // 2), -(-wd // 2)
@@ -369,24 +460,12 @@ def check_kernels(frame, frames512, fish):
         bit_equal=bits, levels_per_launch=len(levels), library_abs_err=lib_err,
     )
 
-    def diff(got, want):
-        """Max abs difference and bit equality of two lists of maps (p3's
-        packed bits compare as its float values do)."""
-        e = max((a - b).abs().max().item() for a, b in zip(got, want))
-        return e, all(torch.equal(a, b) for a, b in zip(got, want))
-
     # C: the detector maps of all 5 levels (basis included) in one launch.
     # Its flops: the bank, then ~70 for (score, ct, st), ~60 for the NMS
     # window, the packed 3x3 pool and the subpixel offsets.
     feats = lambda: cf.g2_features_levels(levels, xt, yt, threshold=1.0, nms_radius=2)  # noqa: E731
-    per_level_out = feats()
-    err, bits, agree, bound = 0.0, True, 1.0, Bound()
-    for lv, ko in zip(levels, per_level_out):
-        po = cf.g2_features_full_plain(lv, xt, yt, threshold=1.0, nms_radius=2)
-        e, same = diff(ko, po)
-        err, bits = max(err, e), bits and same
-        sent = cf.P3_SENTINEL * 0.5
-        agree = min(agree, ((ko[0] > sent) == (po[0] > sent)).float().mean().item())
+    (err, bits), agree, bound = fe["g2_features_full"], fe["p3_keep_agreement"], Bound()
+    for lv in levels:
         px = lv.numel()
         bound.add(px * 4 * (1 + 7 + 5), bank_flops(px, xt, yt) + 130 * px)
     record(
@@ -401,28 +480,22 @@ def check_kernels(frame, frames512, fish):
     # D: descriptor sampling at the 256 detected keypoints of each level, all
     # levels in one launch; the library call is F.grid_sample per level on
     # the same (clipped) coordinates
-    lib_err, ys_l, xs_l, grids, bound = 0.0, [], [], [], Bound()
-    bases = [o[5] for o in per_level_out]
-    for p3, dy, dx, ct, st, basis in per_level_out:
-        kp = detect_keypoints_packed(p3, dy, dx, ct, st, max_keypoints=256)
-        ys, xs, _, _ = _rotated_grid_coords(kp, 4, 3.0)
+    lib_err, grids, bound = 0.0, [], Bound()
+    bases, ys, xs, counts = fe["bases"], fe["ys"], fe["xs"], fe["counts"]
+    for basis, k0, k1 in zip(bases, np.cumsum([0, *counts[:-1]]), np.cumsum(counts)):
+        ysl, xsl = ys[:, k0:k1], xs[:, k0:k1]
         h, w = basis.shape[-2:]
-        grid = torch.stack([2 * xs.clamp(0, w - 1) / max(w - 1, 1) - 1,
-                            2 * ys.clamp(0, h - 1) / max(h - 1, 1) - 1], -1)
+        grid = torch.stack([2 * xsl.clamp(0, w - 1) / max(w - 1, 1) - 1,
+                            2 * ysl.clamp(0, h - 1) / max(h - 1, 1) - 1], -1)
         lib = F.grid_sample(basis, grid, mode="bilinear", padding_mode="border", align_corners=True)
-        lib_err = max(lib_err, (lib.permute(0, 2, 3, 1) - cd.sample_patches_plain(basis, ys, xs))
+        lib_err = max(lib_err, (lib.permute(0, 2, 3, 1) - cd.sample_patches_plain(basis, ysl, xsl))
                       .abs().max().item())
-        ys_l.append(ys)
-        xs_l.append(xs)
         grids.append((basis, grid))
-        n_s, c = ys.numel(), basis.shape[1]
+        n_s, c = ysl.numel(), basis.shape[1]
         # coordinates in, 4 corner texels of C channels in, C samples out;
         # ~10 flops of coordinates per sample and 8 of lerps per channel
         bound.add(n_s * (8 + 16 * c + 4 * c), n_s * (10 + 8 * c))
-    counts = [y.shape[1] for y in ys_l]
-    ys, xs = torch.cat(ys_l, 1).contiguous(), torch.cat(xs_l, 1).contiguous()
-    err, bits = diff([cd.sample_patches_levels(bases, ys, xs, counts)],
-                     [cd.sample_patches_levels_plain(bases, ys, xs, counts)])
+    err, bits = fe["desc_sample"]
     record(
         "desc_sample", "cvsteer_tpu_torch/kernels/csrc/desc_sample.cu",
         "cvsteer_tpu/ops/pallas_desc.py:211 bilinear_sample_patch_dma (kernel :148 sample_patches_pallas)",
@@ -734,6 +807,399 @@ def run_vo_device(n_frames: int, seed: int, host: dict) -> dict:
         replay=replay, keyframes=timer.count.get("keyframe", 0), first_promotion=first_promotion,
         max_pose_diff_before=float(max(same, default=math.inf)),
     )
+
+
+# --- phase 9: loop closure --------------------------------------------------
+# The synthetic feature world of tests/test_loopclosure.py (loop_world, the
+# renderer of tests/test_vo.py), rebuilt here with numpy: the tests import jax.
+LOOP_K = (500.0, 500.0, 320.0, 240.0)  # fx, fy, cx, cy
+LOOP_N_CAP, LOOP_DESC = 256, 32
+
+
+def _loop_world():
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    X = rng.uniform([-2, -1.5, -2], [2, 1.5, 2], (300, 3)).astype(np.float32)
+    desc = rng.normal(size=(300, LOOP_DESC)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    return X, desc
+
+
+def _render_feats(X, desc, R, t, rng, pix_noise=0.1, desc_noise=0.05):
+    """tests/test_vo.py::_render_features on the card: the visible points'
+    pixels and noisy descriptors as a Features set."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch.features.frontend import Features
+
+    fx, fy, cx, cy = LOOP_K
+    p = X @ R.T + t
+    z = p[:, 2]
+    uv = p[:, :2] / z[:, None]
+    pix = np.stack([uv[:, 1] * fy + cy, uv[:, 0] * fx + cx], -1)
+    vis = (z > 0.5) & (pix[:, 0] > 5) & (pix[:, 0] < 475) & (pix[:, 1] > 5) & (pix[:, 1] < 635)
+    ids = np.nonzero(vis)[0]
+    rng.shuffle(ids)
+    ids = ids[:LOOP_N_CAP]
+    n = len(ids)
+    yx = np.zeros((LOOP_N_CAP, 2), np.float32)
+    dsc = np.zeros((LOOP_N_CAP, LOOP_DESC), np.float32)
+    valid = np.zeros(LOOP_N_CAP, bool)
+    yx[:n] = pix[ids] + rng.normal(0, pix_noise, (n, 2))
+    d = desc[ids] + rng.normal(0, desc_noise, (n, LOOP_DESC))
+    dsc[:n] = d / np.linalg.norm(d, axis=1, keepdims=True)
+    valid[:n] = True
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    return Features(yx=dev(yx), score=dev(valid), theta=dev(np.zeros(LOOP_N_CAP)),
+                    level=dev(np.zeros(LOOP_N_CAP), torch.int32), desc=dev(dsc),
+                    valid=dev(valid, torch.bool))
+
+
+def _lookat_pose(c):
+    """World->camera pose of a camera at ``c`` looking at the origin."""
+    import numpy as np
+
+    z = -c / np.linalg.norm(c)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    R = np.stack([x, y, z], axis=1).T.astype(np.float32)
+    return R, (-R @ c).astype(np.float32)
+
+
+def _circle_pose(k, n, radius=7.0):
+    import numpy as np
+
+    a = 2 * np.pi * k / n
+    return _lookat_pose(np.array([radius * np.sin(a), 0.0, -radius * np.cos(a)]))
+
+
+def _inject_scale_drift(state, rate):
+    """tests/test_loopclosure.py::_inject_scale_drift: each odometry step's
+    translation scaled by (1 + rate)^k, landmarks following their anchoring
+    keyframe's similarity, the trajectory and its re-anchoring records too.
+    Returns the accumulated drift."""
+    import numpy as np
+
+    kfs = state.keyframes
+    P = len(kfs)
+    centers = [(-kf.R.T @ kf.t).astype(np.float64) for kf in kfs]
+    s = [(1.0 + rate) ** k for k in range(P)]
+    c_new = [centers[0]]
+    for k in range(1, P):
+        c_new.append(c_new[-1] + s[k - 1] * (centers[k] - centers[k - 1]))
+    anchor = {}
+    for k, kf in enumerate(kfs):
+        for lid in kf.landmark_ids[kf.landmark_ids >= 0]:
+            anchor.setdefault(int(lid), k)
+    for lid, k in anchor.items():
+        X = state.landmarks[lid].astype(np.float64)
+        state.landmarks[lid] = (c_new[k] + s[k] * (X - centers[k])).astype(np.float32)
+    for k, kf in enumerate(kfs):
+        kf.t = (-kf.R @ c_new[k]).astype(np.float32)
+    kf_by_frame = {kf.index: k for k, kf in enumerate(kfs)}
+    for i, (f, R, t) in enumerate(state.trajectory):
+        if f in kf_by_frame:
+            state.trajectory[i] = (f, R, (-R @ c_new[kf_by_frame[f]]).astype(np.float32))
+        elif i < len(state.traj_ref) and state.traj_ref[i] is not None:
+            ref, R_rel, t_rel, pidx, b_old = state.traj_ref[i]
+            k = kf_by_frame.get(ref)
+            if k is None:
+                continue
+            c = (-R.T @ t).astype(np.float64)
+            c2 = c_new[k] + s[k] * (c - centers[k])
+            state.trajectory[i] = (f, R, (-R @ c2).astype(np.float32))
+            state.traj_ref[i] = (ref, R_rel, (s[k] * t_rel).astype(np.float32), pidx,
+                                 b_old * (s[k - 1] if k >= 1 else s[k]))
+    return s[-1]
+
+
+def _kf_ate(state, gt) -> float:
+    import numpy as np
+
+    from cvsteer_tpu_torch.slam.evaluate import ate_rmse
+
+    kfs = state.keyframes
+    return ate_rmse(np.stack([kf.R for kf in kfs]), np.stack([kf.t for kf in kfs]),
+                    np.stack([gt[kf.index][0] for kf in kfs]),
+                    np.stack([gt[kf.index][1] for kf in kfs]))
+
+
+def run_loop_closure() -> dict:
+    """Phase 9 (a): close_loops on the drifted 13-keyframe revisit (the
+    reference's test_close_loops_corrects_drift, two rounds), then the host
+    engine around the 48-frame circle with injected scale drift, closed by
+    close_loops_sim3 and, on a copy, by close_loops; all on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch.geometry.camera import Intrinsics
+    from cvsteer_tpu_torch.slam import se3
+    from cvsteer_tpu_torch.slam.loopclosure import close_loops, close_loops_sim3
+    from cvsteer_tpu_torch.slam.vo import Keyframe, VOConfig, init_vo, process_frame
+
+    X, desc = _loop_world()
+    K = Intrinsics(*LOOP_K)
+    out = {}
+
+    # (a1) SE(3) drift on a keyframed revisit, no landmark map
+    rng = np.random.default_rng(3)
+    gt = [_circle_pose(k, 12) for k in range(12)] + [_circle_pose(0, 12)]
+    state = init_vo(VOConfig(intrinsics=K), device="cuda")
+    for n, (R, t) in enumerate(gt):
+        s = n / len(gt)
+        xi = np.concatenate([0.06 * s * np.array([1, -1, 0.5]), 0.4 * s * np.array([1, 0.3, -0.5])])
+        dR, dt = se3.exp_se3(torch.tensor(xi, dtype=torch.float32))
+        Rn, tn = se3.compose(dR, dt, torch.from_numpy(R), torch.from_numpy(t))
+        state.keyframes.append(Keyframe(
+            index=n, features=_render_feats(X, desc, R, t, rng), R=Rn.numpy(), t=tn.numpy(),
+            landmark_ids=np.full(LOOP_N_CAP, -1, np.int64)))
+    state.initialized, state.frame_count = True, len(gt)
+
+    def last_err():  # the newest keyframe's rotation (rad) and translation error
+        kf = state.keyframes[-1]
+        R, t = gt[-1]
+        rot = float(se3.rotation_geodesic(torch.from_numpy(kf.R), torch.from_numpy(R)))
+        return rot, float(np.linalg.norm(kf.t - t))
+
+    before = last_err()
+    t0 = time.perf_counter()
+    n1 = close_loops(state, min_gap=6, min_inliers=20)
+    t1 = time.perf_counter()
+    n2 = close_loops(state, min_gap=6, min_inliers=20)  # against corrected baselines
+    out["se3"] = dict(accepted=(n1, n2), before=before, after=last_err(),
+                      ms=(1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)))
+
+    # (a2) the host engine around the loop, then injected scale drift
+    rng = np.random.default_rng(11)
+    n_frames = 48
+    gt = [_circle_pose(k, n_frames - 1) for k in range(n_frames)]
+    cfg = VOConfig(intrinsics=K, kf_max_gap=4, window=6, track_min_landmarks=40, min_parallax=0.01)
+    state = init_vo(cfg, device="cuda")
+    for R, t in gt:
+        state = process_frame(state, _render_feats(X, desc, R, t, rng))
+    drift = _inject_scale_drift(state, rate=0.06)
+    before = _kf_ate(state, gt)
+    state_se3 = copy.deepcopy(state)
+    t0 = time.perf_counter()
+    n_sim3 = close_loops_sim3(state, min_gap=6, min_inliers=20)
+    t1 = time.perf_counter()
+    n_se3 = close_loops(state_se3, min_gap=6, min_inliers=20)
+    t2 = time.perf_counter()
+    out["sim3"] = dict(
+        keyframes=len(state.keyframes), drift=drift, ate_before=before, accepted=n_sim3,
+        ate_sim3=_kf_ate(state, gt), accepted_se3=n_se3,
+        ate_se3=_kf_ate(state_se3, gt) if n_se3 else before,
+        ms=(1e3 * (t1 - t0), 1e3 * (t2 - t1)),
+    )
+    return out
+
+
+def pgo_world(P, seed, sim3=False):
+    """A circle of P world->camera poses (numpy) with odometry edges and two
+    closures measured from the truth with 0.01 noise, and a start drifted by
+    0.05 per pose (and, for Sim(3), a scale ramp to e^0.3); pose 0 fixed."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch.slam import se3
+
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(P) / P
+    Rwc = se3.exp_so3(torch.from_numpy(np.stack([0 * ang, 0 * ang, ang], 1).astype(np.float32)))
+    R = Rwc.transpose(-1, -2).numpy()
+    c = np.stack([5 * np.cos(ang), 5 * np.sin(ang), 0 * ang], 1)
+    t = (-(R @ c[..., None])[..., 0]).astype(np.float32)
+    edges = [(k, k + 1) for k in range(P - 1)] + [(0, P - 1), (1, P // 2)]
+    i = np.array([a for a, _ in edges], np.int32)
+    j = np.array([b for _, b in edges], np.int32)
+    Rz = R[j] @ np.transpose(R[i], (0, 2, 1))
+    tz = t[j] - (Rz @ t[i][..., None])[..., 0]
+    dR, dt = se3.exp_se3(torch.from_numpy(rng.normal(0, 0.01, (len(edges), 6)).astype(np.float32)))
+    Rz = (dR.numpy() @ Rz).astype(np.float32)
+    tz = ((dR.numpy() @ tz[..., None])[..., 0] + dt.numpy()).astype(np.float32)
+    drift = rng.normal(0, 0.05, (P, 6)).astype(np.float32)
+    drift[0] = 0
+    dR, dt = se3.exp_se3(torch.from_numpy(drift))
+    fixed = np.arange(P) == 0
+    return dict(
+        i=i, j=j, Rz=Rz, tz=tz, fixed=fixed, sz=np.ones(len(edges), np.float32),
+        R0=(dR.numpy() @ R).astype(np.float32),
+        t0=((dR.numpy() @ t[..., None])[..., 0] + dt.numpy()).astype(np.float32),
+        s0=np.exp(np.linspace(0.0, 0.3, P)).astype(np.float32) if sim3 else None,
+    )
+
+
+def pgo_call(w, device, *, kind, **kw):
+    """optimize_pose_graph (kind "se3") or optimize_pose_graph_sim3 ("sim3")
+    on a pgo_world on ``device``: (poses, stats)."""
+    import torch
+
+    from cvsteer_tpu_torch.slam import posegraph as pg
+    from cvsteer_tpu_torch.slam import posegraph_sim3 as ps
+    from cvsteer_tpu_torch.slam.sim3 import Sim3
+
+    def T(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    i, j, E = T(w["i"], torch.int32), T(w["j"], torch.int32), len(w["i"])
+    fixed = T(w["fixed"], torch.bool)
+    if kind == "se3":
+        g = pg.PoseGraph(i, j, T(w["Rz"]), T(w["tz"]), T([1.0] * E), fixed)
+        return pg.optimize_pose_graph(pg.Poses(T(w["R0"]), T(w["t0"])), g, **kw)
+    g = ps.Sim3Graph(i, j, T(w["sz"]), T(w["Rz"]), T(w["tz"]), T([1.0] * E), fixed)
+    return ps.optimize_pose_graph_sim3(Sim3(T(w["s0"]), T(w["R0"]), T(w["t0"])), g, **kw)
+
+
+def time_pgo() -> dict:
+    """Phase 9 (c): optimize_pose_graph_sim3 on the card at the closers'
+    two solver sizes, 20 LM iterations as close_loops_sim3 runs them: dense
+    at 256 poses (the skeleton's bucket), PCG with 100 CG iterations at
+    512 (past it). Each timed once after a warm-up call, host clock to a
+    synchronize."""
+    import torch
+
+    out = {}
+    for solver, P in (("dense", 256), ("pcg", 512)):
+        w = pgo_world(P, 5, sim3=True)
+        kw = dict(kind="sim3", iterations=20, solver=solver, cg_iterations=100)
+        pgo_call(w, "cuda", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = pgo_call(w, "cuda", **kw)
+        c = float(st.cost)  # synchronizes
+        out[solver] = dict(P=P, ms=1e3 * (time.perf_counter() - t0), cost=c,
+                           initial=float(st.initial_cost))
+    return out
+
+
+def _render_city(frames):
+    """Render CityLoop(**LOOP_CITY) frames (a worker process's share)."""
+    from cvsteer_tpu_torch.io.synth import CityLoop
+
+    seq = CityLoop(**LOOP_CITY)
+    return [seq.render(k) for k in frames]
+
+
+def _city_cfg():
+    """The campaign's VOConfig (scripts/slam_scale_run.py), field for field."""
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig
+    from cvsteer_tpu_torch.geometry.camera import Intrinsics
+    from cvsteer_tpu_torch.io.synth import CityLoop
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+
+    seq = CityLoop(**LOOP_CITY)
+    return seq, VOConfig(
+        intrinsics=Intrinsics(*seq.intrinsics4), frontend=FrontendConfig(upright_desc=True),
+        kf_max_gap=3, window=12, track_min_landmarks=40, min_parallax=0.03, match_ratio=0.80,
+        ba_iterations=25, tri_min_ray_angle_deg=0.7, rescue_radius_px=8.0,
+        max_landmarks=262144, loop_closure=True, loop_closure_sim3=True, loop_min_gap=50,
+        loop_cooldown=25, loop_sig_capacity=4096, loop_signature_threshold=0.8,
+        loop_consistency=2, loop_reject_cooldown=15, ground_height_m=1.5,
+        speed_prior_band=(0.5, 2.0),
+    )
+
+
+def _events(state, ev):
+    return [e for e in (state.diag or []) if e["ev"] == ev]
+
+
+def run_loop_city() -> dict:
+    """Phase 9 (b): the campaign configuration on the cut CityLoop through
+    the device engine, then the host engine on the first LOOP_HOST_FRAMES
+    frames. Frames are rendered first, in worker processes (set-up, not VO
+    time)."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.slam.evaluate import ate_rmse
+    from cvsteer_tpu_torch.slam.vo import finalize, init_vo, process_image
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+    from cvsteer_tpu_torch.utils.metrics import StepTimer
+    from cvsteer_tpu_torch.utils.profiling import MemoryHighWater
+
+    from concurrent.futures import ProcessPoolExecutor
+
+    seq, cfg = _city_cfg()
+    t0 = time.perf_counter()
+    chunks = [list(range(w, LOOP_FRAMES, LOOP_RENDER_WORKERS)) for w in range(LOOP_RENDER_WORKERS)]
+    with ProcessPoolExecutor(LOOP_RENDER_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_render_city, chunks))
+    images = [None] * LOOP_FRAMES
+    for idx, imgs in zip(chunks, parts):
+        for k, img in zip(idx, imgs):
+            images[k] = img
+    render_s = time.perf_counter() - t0
+    gR, gt = seq.gt_arrays()
+
+    def summary(state, timer, n, launches):  # of a finalized run
+        Rs, ts = state.poses()
+        frames = [f for f, _, _ in state.trajectory]
+        whole = frames == list(range(n))
+        ate = ate_rmse(Rs, ts, gR[frames], gt[frames]) if whole else float("nan")
+        closures = _events(state, "closure")
+        return dict(
+            state=state, n=n, vo_s=timer.total_s["vo"], ate=ate, whole=whole,
+            finite=bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
+            keyframes=len(state.keyframes), ground=len(_events(state, "ground")),
+            speed=len(_events(state, "speed_prior")),
+            closures=[(e["accepted"], e.get("sync_ms", float("nan")), e["solve_ms"]) for e in closures],
+            launches=launches, means_ms=timer.means_ms(),
+        )
+
+    # the device engine over the whole cut sequence
+    torch.cuda.reset_peak_memory_stats()
+    vo = DeviceVO(cfg, device="cuda")
+    vo.state.diag = []
+    vo.state.timer = timer = StepTimer(sync=torch.cuda.synchronize)
+    kernels.reset_launch_counts()
+    for img in images:
+        with timer.span("vo"):
+            vo.process_image(img)
+    final = vo.finalize()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    high = MemoryHighWater()
+    peak = high.sample()["cuda:0"]["peak_bytes_in_use"]
+    dev = summary(final, timer, LOOP_FRAMES, launches)
+    dev.update(captures=vo.captures, accepted_total=vo.closures_accepted, peak_bytes=peak,
+               render_s=render_s, gate=ate_bound(seq, final, cfg))
+
+    # the host engine over the first frames (both priors, no revisit)
+    state = init_vo(cfg, device="cuda")
+    state.diag = []
+    state.timer = htimer = StepTimer(sync=torch.cuda.synchronize)
+    kernels.reset_launch_counts()
+    for img in images[:LOOP_HOST_FRAMES]:
+        with htimer.span("vo"):
+            state = process_image(state, img)
+    torch.cuda.synchronize()
+    host = summary(finalize(state), htimer, LOOP_HOST_FRAMES, kernels.launch_counts())
+    # the bound over the host run's frames: the same circuit and speed
+    head = type(seq)(**dict(LOOP_CITY, n_frames=LOOP_HOST_FRAMES,
+                            laps=LOOP_CITY["laps"] * LOOP_HOST_FRAMES / LOOP_CITY["n_frames"]))
+    host["gate"] = ate_bound(head, host["state"], cfg)
+
+    # B, C and D against their plain versions at this path's shapes (the
+    # 240x320 frame down to 15x20) and with its upright descriptors
+    img0 = torch.from_numpy(images[0]).cuda().to(torch.float32)[None].contiguous()
+    fe = frontend_agreement(img0, cfg.frontend, g2_bank())
+    agree = {k: fe[k] for k in PATH_KERNELS["loop"]}
+    agree["p3_keep_agreement"] = fe["p3_keep_agreement"]
+    agree["shapes"] = [tuple(lv.shape[-2:]) for lv in fe["levels"]]
+    return dict(device=dev, host=host, kernels=agree)
 
 
 def run_cli(frames512, paths, workdir: str):
@@ -1238,6 +1704,72 @@ def main(argv=None) -> int:
     launches["pyramid"], pyr_checks = run_pyramid(frame)
     checks.update(pyr_checks)
 
+    # 9. loop closure: (a) deterministic closures, (b) the campaign config
+    t0 = time.perf_counter()
+    lc = run_loop_closure()
+    se, sm = lc["se3"], lc["sim3"]
+    print(f"{card} | loop (a) SE(3) drift, 13 keyframes: accepted {se['accepted']}, newest "
+          f"keyframe's rotation error {se['before'][0]:.4f} -> {se['after'][0]:.4f} rad, "
+          f"translation error {se['before'][1]:.4f} -> {se['after'][1]:.4f} m; close_loops ms "
+          f"{se['ms'][0]:.1f}, {se['ms'][1]:.1f}")
+    print(f"{card} | loop (a) scale drift x{sm['drift']:.3f} on {sm['keyframes']} host-engine "
+          f"keyframes: keyframe ATE {sm['ate_before']:.4f} m -> Sim(3) {sm['ate_sim3']:.4f} m "
+          f"({sm['accepted']} accepted, {sm['ms'][0]:.1f} ms), SE(3) {sm['ate_se3']:.4f} m "
+          f"({sm['accepted_se3']} accepted, {sm['ms'][1]:.1f} ms)")
+    checks.update({
+        "loop (a): SE(3) closure accepted": se["accepted"][0] >= 1,
+        # tests/test_loopclosure.py::test_close_loops_corrects_drift's bars
+        "loop (a): SE(3) rotation error halved": se["after"][0] < 0.5 * se["before"][0],
+        "loop (a): SE(3) translation error cut": se["after"][1] < 0.85 * se["before"][1],
+        "loop (a): Sim(3) closure accepted": sm["accepted"] >= 1,
+        "loop (a): Sim(3) keyframe ATE halved": sm["ate_sim3"] <= 0.5 * sm["ate_before"],
+        "loop (a): Sim(3) beats SE(3) on scale drift": sm["ate_sim3"] < sm["ate_se3"],
+    })
+    city = run_loop_city()
+    for eng, r in (("device", city["device"]), ("host", city["host"])):
+        ev = r["closures"]
+        # the device engine logs a closure event when the gate lets one run;
+        # the host engine logs each call of its closer (one per promotion)
+        what = "closure events" if eng == "device" else "closure calls"
+        print(f"{card} | loop (b) {eng} engine, CityLoop {r['n']} frames 240x320 (side "
+              f"{LOOP_CITY['side']} m of the campaign's 120, {r['n']} of its 4,200 frames): "
+              f"{r['n'] / r['vo_s']:.2f} frames/s of VO time; ATE {r['ate']:.4f} m, bound "
+              f"{r['gate']['bound']:.4f} m; keyframes {r['keyframes']}, ground corrections "
+              f"{r['ground']}, speed clamps {r['speed']}; {what} {len(ev)}, "
+              f"{sum(a for a, _, _ in ev)} accepted; launches "
+              f"{ {k: r['launches'][k] for k in PATH_KERNELS['loop']} }")
+        print(f"{card} | loop (b) {eng} engine phase ms (mean per call): " + json.dumps(
+            {k: round(v, 3) for k, v in r["means_ms"].items()}))
+        for n_ev, (acc, sync_ms, solve_ms) in enumerate(ev if eng == "device" else []):
+            print(f"{card} | loop (b) device closure event {n_ev}: accepted {acc}, sync "
+                  f"{sync_ms} ms, verification and solve {solve_ms} ms")
+        key = "loop" if eng == "device" else "loop_host"
+        launches[key] = r["launches"]
+        checks.update({
+            f"loop (b) {eng}: one finite pose per frame": r["whole"] and r["finite"],
+            f"loop (b) {eng}: ATE within bound": r["ate"] < r["gate"]["bound"],
+            f"loop (b) {eng}: kernels B-D launched": all(r["launches"][k] > 0
+                                                         for k in PATH_KERNELS[key]),
+            f"loop (b) {eng}: ground corrections": r["ground"] >= 1,
+        })
+    pgo = time_pgo()
+    for solver, r in pgo.items():
+        print(f"{card} | loop (c) optimize_pose_graph_sim3 {solver}, {r['P']} poses, 20 LM "
+              f"iterations: {r['ms']:.1f} ms; cost {r['initial']:.4g} -> {r['cost']:.4g}")
+        checks[f"loop (c) PGO {solver} converges"] = r["cost"] < 0.5 * r["initial"]
+    d = city["device"]
+    print(f"{card} | loop (b) device engine: graphs captured {d['captures']}; peak allocator "
+          f"memory {d['peak_bytes'] / 2**20:.1f} MiB; frames rendered in {d['render_s']:.1f} s "
+          f"({LOOP_RENDER_WORKERS} processes); phase 9 {time.perf_counter() - t0:.1f} s")
+    checks["loop (b) device: 2 graphs, none recaptured"] = d["captures"] == 2
+    kc = city["kernels"]
+    print(f"{card} | loop (b) kernels against their plain versions on CityLoop frame 0 (levels "
+          f"{kc['shapes']}, upright descriptors): " + json.dumps(
+              {k: {"max_abs_err": kc[k][0], "bit_equal": kc[k][1]} for k in PATH_KERNELS["loop"]})
+          + f"; p3 keep agreement {kc['p3_keep_agreement']}")
+    checks["loop (b): B, C, D bit-equal to plain at the path's shapes"] = (
+        all(kc[k][1] for k in PATH_KERNELS["loop"]) and kc["p3_keep_agreement"] == 1.0)
+
     # 8. probes: their paths, then their kernels against the plain versions
     t0 = time.perf_counter()
     launches["probes"], probe_checks = run_probes()
@@ -1258,6 +1790,8 @@ def main(argv=None) -> int:
         r["launches_from"] = phase
         if r["name"] in PATH_KERNELS["vo_device"]:
             r["launches_vo_device"] = launches["vo_device"][r["name"]]
+            r["launches_loop"] = launches["loop"][r["name"]]
+            r["launches_loop_host"] = launches["loop_host"][r["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,

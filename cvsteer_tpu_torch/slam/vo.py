@@ -12,20 +12,21 @@ of the tests use this seam).
 Pose convention: T_k = (R_k, t_k), world -> camera-k. Scale is fixed by the
 two-view initialization baseline (||t|| = 1).
 
-Ported here: everything the default VOConfig executes — init and two-view
-bootstrap, tracking with rescue, relocalization, keyframe decision and
-promotion, windowed BA, re-bootstrap, the record-only apply_speed_prior,
-``finalize`` — and the options both engines share with
+Ported here: init and two-view bootstrap (with the ground-plane gauge),
+tracking with rescue, relocalization, keyframe decision and promotion,
+windowed BA, re-bootstrap, the keyframe epilogue (the ground prior, the
+speed prior with its band, loop closure in SE(3) or Sim(3) through
+slam.loopclosure), ``finalize`` (which re-anchors the whole trajectory on
+the corrected keyframes), and the options both engines share with
 cvsteer_tpu_torch.slam.vo_device: the constant-velocity motion model
-(``motion_model``) and flow-driven keyframing (``kf_min_flow_px``). The
-other options (loop closure, Sim(3) closure, the speed-prior band, the
-ground prior) raise NotImplementedError in :func:`init_vo`.
+(``motion_model``) and flow-driven keyframing (``kf_min_flow_px``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,7 +54,15 @@ MAX_BA_LANDMARKS = 4096
 
 class VOConfig(NamedTuple):
     """The reference's VOConfig, field for field (see cvsteer_tpu.slam.vo
-    for each field's rationale)."""
+    for each field's rationale).
+
+    ``loop_scale_band`` (lo, hi) bounds a Sim(3) closure edge's measured
+    relative scale and the solved node scales; lo <= 0 turns both checks
+    off, hi included (ADVICE.md's finding at vo.py:126, ported as the
+    reference has it: an upper bound alone cannot be set).
+    ``speed_prior_band`` (lo, hi): hi = 0 turns the clamp off (the speed
+    history is still recorded); ``ground_height_m`` 0 turns the ground
+    prior off, and with it on the speed band records only."""
 
     intrinsics: Intrinsics = Intrinsics(500.0, 500.0, 320.0, 240.0)
     frontend: FrontendConfig = FrontendConfig()
@@ -155,6 +164,16 @@ class VOState:
     # per-phase timer (None = off): spans "features", "track", "keyframe",
     # "init", and "capture" (the device engine's one-time graph capture)
     timer: Optional[StepTimer] = dataclasses.field(default=None, repr=False)
+    # lazily built signature index of the host closure path
+    # (slam.loopclosure.state_signature_index)
+    sig_index: Optional[object] = dataclasses.field(default=None, repr=False)
+    # closure-gate bookkeeping (loopclosure.closure_gate): (region, streak)
+    # of the last promotion's top candidate, and region -> keyframe-index
+    # cooldowns after rejected verifications
+    loop_streak: Tuple[int, int] = (-1, 0)
+    loop_reject_until: dict = dataclasses.field(default_factory=dict)
+    # rolling ground-height observations (smoothed_ground)
+    ground_hist: List[float] = dataclasses.field(default_factory=list)
 
     def poses(self) -> Tuple[np.ndarray, np.ndarray]:
         """Trajectory as (R [F, 3, 3], t [F, 3])."""
@@ -163,19 +182,8 @@ class VOState:
         return Rs, ts
 
 
-_NOT_PORTED = (
-    ("loop_closure", False, "loop closure (slam/loopclosure.py) is ported in a later PR"),
-    ("loop_closure_sim3", False, "Sim(3) loop closure is ported in a later PR"),
-    ("speed_prior_band", (0.0, 0.0), "the speed-prior band is ported with loop closure in a later PR"),
-    ("ground_height_m", 0.0, "the ground-plane prior is ported with loop closure in a later PR"),
-)
-
-
 def init_vo(config: VOConfig = VOConfig(), device="cuda") -> VOState:
     """A fresh VO state whose device steps run on ``device``."""
-    for name, default, msg in _NOT_PORTED:
-        if getattr(config, name) != default:
-            raise NotImplementedError(f"VOConfig.{name}={getattr(config, name)!r}: {msg}")
     state = VOState(config=config, device=torch.device(device))
     state.landmarks = np.zeros((config.max_landmarks, 3), np.float32)
     state.landmark_valid = np.zeros(config.max_landmarks, bool)
@@ -208,7 +216,7 @@ def _normalize(yx: torch.Tensor, K: Intrinsics) -> torch.Tensor:
 def _track_fused(
     desc_a, valid_a, X_slots, sel_slots, yx_a, yx_b, desc_b, valid_b, R0, t0, R1, t1,
     K: Intrinsics, *, ratio, iterations, huber_delta, min_track, dual_init=False,
-    rescue_radius=0.0, rescue_min_cos=0.6, kf_min_flow=0.0,
+    rescue_radius=0.0, rescue_min_cos=0.6, kf_min_flow=0.0, ground_prior=False,
 ):
     """The steady-state tracking step: match to the keyframe, pair matched
     features with the keyframe-slot landmark mirror, motion-only PnP from
@@ -216,8 +224,10 @@ def _track_fused(
     pose (R1, t1) too, keeping the better — then the projective rescue and
     a short re-refine. With ``kf_min_flow > 0`` it also returns the median
     displacement of the matched keyframe features (normalized units; 0.0
-    otherwise) for the flow-driven keyframe rule. Returns device tensors
-    (R, t, n_inliers, idx, n_valid, uv_all, valid_b, flow)."""
+    otherwise) for the flow-driven keyframe rule; with ``ground_prior`` the
+    ground-plane height observation (vo_core.ground_height_obs; 0.0
+    otherwise). Returns device tensors (R, t, n_inliers, idx, n_valid,
+    uv_all, valid_b, flow, ground_h)."""
     idx = match_descriptors(desc_a, valid_a, desc_b, valid_b, ratio=ratio).index
     use = (idx >= 0) & sel_slots
     uv_all = _normalize(yx_b, K)
@@ -243,7 +253,13 @@ def _track_fused(
         flow = vo_core.median_flow(_normalize(yx_a, K), valid_a, uv_all, idx)
     else:
         flow = torch.zeros((), dtype=uv_all.dtype, device=uv_all.device)
-    return Ra, ta, na, idx, valid_b.sum(), uv_all, valid_b, flow
+    if ground_prior:
+        ground_h = vo_core.ground_height_obs(
+            X_slots, use, yx_b[torch.clamp_min(idx, 0), 0], Ra, ta, K.cy
+        )
+    else:
+        ground_h = torch.zeros((), dtype=uv_all.dtype, device=uv_all.device)
+    return Ra, ta, na, idx, valid_b.sum(), uv_all, valid_b, flow, ground_h
 
 
 @precise()
@@ -398,6 +414,12 @@ def _try_initialize(state: VOState, feats: Features) -> bool:
     med = median_speed(state)
     if med is not None and med > 1e-12:
         s_init = med * max(state.frame_count - kf0.index, 1)
+    if cfg.ground_height_m > 0:
+        # absolute anchor: the init gauge from the ground plane (map units
+        # == meters from frame one), over the speed history
+        h_raw = _init_ground_height(_host(kf0.features.yx)[:, 0], X_c0, good, cfg.intrinsics.cy)
+        if h_raw is not None:
+            s_init = cfg.ground_height_m / h_raw
     X_c0 = X_c0 * s_init
     X = (X_c0 - kf0.t) @ kf0.R  # camera-0 -> world
     _diag(state, ev="init", kf0_frame=int(kf0.index), n_inliers=n_new, scale=s_init)
@@ -426,6 +448,22 @@ def _try_initialize(state: VOState, feats: Features) -> bool:
     state.track_version += 1
     state.kf_baselines.append(s_init / max(state.frame_count - kf0.index, 1))
     return True
+
+
+def _init_ground_height(v, X_c0, good, cy) -> Optional[float]:
+    """The bootstrap's ground height: the dominant-height cluster of the
+    bottom-of-image triangulated points (as vo_core.ground_height_obs, on
+    the host), None below 8 supporting points."""
+    y_c = X_c0[:, 1]
+    sel = good & (v > 1.25 * cy) & (y_c > 1e-3) & (X_c0[:, 2] > 1e-3)
+    if sel.sum() < 8:
+        return None
+    pair = (np.abs(y_c[None, :] - y_c[:, None]) < 0.08 * y_c[:, None]) & sel[None, :] & sel[:, None]
+    band = pair[np.argmax(pair.sum(1))]
+    if band.sum() < 8:
+        return None
+    h_raw = float(y_c[band].mean())
+    return h_raw if h_raw > 1e-9 else None
 
 
 def _append_traj(state: VOState, R, t) -> None:
@@ -480,7 +518,7 @@ def _predict_pose(state: VOState):
 def _track(state: VOState, feats: Features):
     """Match to the last keyframe's landmark-bearing features; PnP refine.
     Returns host values (R, t, n_tracked, idx, valid, n_valid, x_new,
-    fvalid, flow)."""
+    fvalid, flow, ground_h)."""
     cfg = state.config
     kf = state.keyframes[-1]
     X_dev, sel_dev = _kf_track_cache(state, kf)
@@ -493,15 +531,15 @@ def _track(state: VOState, feats: Features):
         ratio=cfg.match_ratio, iterations=10, huber_delta=cfg.huber_delta,
         min_track=cfg.track_min_landmarks, dual_init=dual,
         rescue_radius=cfg.rescue_radius_norm, rescue_min_cos=cfg.rescue_min_cos,
-        kf_min_flow=cfg.kf_min_flow_norm,
+        kf_min_flow=cfg.kf_min_flow_norm, ground_prior=cfg.ground_height_m > 0,
     )
-    R, t, n, idx, n_valid, uv_all, valid_b, flow = (_host(a) for a in out)
+    R, t, n, idx, n_valid, uv_all, valid_b, flow, ground_h = (_host(a) for a in out)
     n_tracked = int(n)
     if not (np.isfinite(R).all() and np.isfinite(t).all()):
         R, t, n_tracked = kf.R.copy(), kf.t.copy(), 0
     return (
         R, t, n_tracked, idx, idx >= 0, int(n_valid),
-        uv_all.astype(np.float32), valid_b, float(flow),
+        uv_all.astype(np.float32), valid_b, float(flow), float(ground_h),
     )
 
 
@@ -755,39 +793,158 @@ def _rebootstrap(state: VOState, feats: Features) -> None:
     _diag(state, ev="reboot", n_kf=len(state.keyframes))
 
 
-def apply_speed_prior(state: VOState) -> bool:
-    """Record the newest keyframe's per-frame speed — the reference's
-    apply_speed_prior with the band off (the only setting ported; init_vo
-    refuses the band). The history feeds scale-continuous
-    re-initialization. Returns False: no correction is ever applied."""
+def apply_speed_prior(state: VOState, fresh_ids=None) -> bool:
+    """Record the newest keyframe's per-frame speed; with the kinematic band
+    on (VOConfig.speed_prior_band hi > 0, and no ground prior), first clamp
+    its baseline into [lo, hi] x rolling-median speed x frame gap. Returns
+    True when a correction applied.
+
+    On violation the promotion increment is rescaled about the previous
+    keyframe's center: the new pose moves to the clamped baseline and
+    ``fresh_ids`` (this promotion's fresh triangulations) rescale with it;
+    older landmarks keep their positions."""
     if len(state.keyframes) < 2:
         return False
+    lo, hi = state.config.speed_prior_band
+    if state.config.ground_height_m > 0:
+        # the ground prior is the absolute reference; the band is relative
+        # (it encodes drifted scale) and would fight its corrections
+        hi = 0.0
     kf, prev = state.keyframes[-1], state.keyframes[-2]
     gap = max(kf.index - prev.index, 1)
-    b = float(np.linalg.norm((-kf.R.T @ kf.t) - (-prev.R.T @ prev.t)))
+    c_prev = -prev.R.T @ prev.t
+    c_new = -kf.R.T @ kf.t
+    b = float(np.linalg.norm(c_new - c_prev))
+    med = median_speed(state)
+    corrected = False
+    if hi > 0 and med is not None:
+        b_cl = float(np.clip(b, lo * med * gap, hi * med * gap))
+        if b > 1e-12 and abs(b_cl - b) > 1e-9 * med:
+            r = b_cl / b
+            c_corr = c_prev + (c_new - c_prev) * r
+            kf.t = (-kf.R @ c_corr).astype(np.float32)
+            if fresh_ids is not None and len(fresh_ids):
+                X = state.landmarks[fresh_ids]
+                state.landmarks[fresh_ids] = (c_prev + (X - c_prev) * r).astype(np.float32)
+            state.trajectory[-1] = (state.frame_count, kf.R.copy(), kf.t.copy())
+            state.track_version += 1
+            _diag(state, ev="speed_prior", b=b, b_clamped=b_cl, gap=gap)
+            b = b_cl
+            corrected = True
     hist = state.kf_baselines
     hist.append(b / gap)
     if len(hist) > 4 * state.config.speed_prior_window:
         del hist[: -2 * state.config.speed_prior_window]
-    return False
+    return corrected
+
+
+def ground_violation(config: VOConfig, h_obs: float) -> bool:
+    """Does a height observation warrant a ground-prior correction?"""
+    target = config.ground_height_m
+    if target <= 0.0 or h_obs <= 1e-9:
+        return False
+    return abs(np.log(target / float(h_obs))) >= vo_core.GROUND_DEADBAND
+
+
+def smoothed_ground(state: VOState, h_obs: float) -> float:
+    """Record a ground-height observation; return the rolling median of the
+    last 3, which the controller corrects against."""
+    state.ground_hist.append(float(h_obs))
+    del state.ground_hist[:-9]
+    return float(np.median(state.ground_hist[-3:]))
+
+
+def ground_correction_ratio(config: VOConfig, h_sm: float):
+    """The control law: smoothed height -> the per-promotion correction
+    ratio r (a similarity about the newest camera center), or None inside
+    the deadband. Proportional on the log error with gain GROUND_GAIN,
+    capped at GROUND_MAX_STEP (GROUND_MAX_STEP_FAR while far)."""
+    target = config.ground_height_m
+    if target <= 0.0 or h_sm <= 1e-9:
+        return None
+    e = float(np.log(target / h_sm))
+    if abs(e) < vo_core.GROUND_DEADBAND:
+        return None
+    cap = vo_core.GROUND_MAX_STEP_FAR if abs(e) > vo_core.GROUND_FAR else vo_core.GROUND_MAX_STEP
+    return float(np.exp(np.clip(vo_core.GROUND_GAIN * e, -cap, cap)))
+
+
+def apply_ground_prior(state: VOState, h_obs: float) -> bool:
+    """Hold the map scale to the ground plane (VOConfig.ground_height_m):
+    when the smoothed height observation leaves the deadband, rescale the
+    window keyframes and every live landmark about the newest camera center
+    by ground_correction_ratio. A global similarity is a gauge transform of
+    the reprojection objective, so windowed BA cannot fight it; keyframes
+    outside the window keep their at-time poses (corrections do not
+    rewrite history). Returns True when a correction applied."""
+    target = state.config.ground_height_m
+    if target <= 0.0 or h_obs <= 1e-9 or not state.keyframes:
+        return False
+    r = ground_correction_ratio(state.config, smoothed_ground(state, h_obs))
+    if r is None:
+        return False
+    kf = state.keyframes[-1]
+    c0 = -kf.R.T @ kf.t
+    for k in state.keyframes[-state.config.window:]:
+        c = c0 + ((-k.R.T @ k.t) - c0) * r
+        k.t = (-k.R @ c).astype(np.float32)
+    live = state.landmark_valid
+    state.landmarks[live] = (c0 + (state.landmarks[live] - c0) * r).astype(np.float32)
+    state.track_version += 1
+    state.trajectory[-1] = (state.frame_count, kf.R.copy(), kf.t.copy())
+    _diag(state, ev="ground", h=float(h_obs), r=r)
+    return True
+
+
+def _fresh_ids_of_last_kf(state: VOState) -> np.ndarray:
+    """This promotion's fresh triangulations (Keyframe.fresh_ids, recorded
+    at registration: they also enter the previous keyframe's table, so no
+    later recomputation can find them)."""
+    ids = state.keyframes[-1].fresh_ids
+    return ids if ids is not None else np.empty(0, np.int64)
+
+
+def _keyframe_epilogue(state: VOState, ground_h: float = 0.0) -> None:
+    """After a keyframe's windowed BA: the ground prior, the speed prior,
+    loop closure, and the trajectory entry of the new keyframe."""
+    cfg = state.config
+    if cfg.ground_height_m > 0 and ground_h > 0:
+        # absolute scale first, so the speed prior records corrected speeds
+        apply_ground_prior(state, ground_h)
+    if cfg.speed_prior_band[1] > 0:
+        apply_speed_prior(state, fresh_ids=_fresh_ids_of_last_kf(state))
+    else:
+        apply_speed_prior(state)  # record only: feeds scale-continuous init
+    if cfg.loop_closure:
+        from cvsteer_tpu_torch.slam.loopclosure import close_loops, close_loops_sim3
+
+        closer = close_loops_sim3 if cfg.loop_closure_sim3 else close_loops
+        t0 = time.perf_counter()
+        n_closed = closer(
+            state, min_gap=cfg.loop_min_gap, min_inliers=cfg.loop_min_inliers,
+            huber_delta=cfg.loop_robust_delta,
+            signature_threshold=cfg.loop_signature_threshold,
+        )
+        _diag(state, ev="closure", accepted=int(n_closed or 0), K=len(state.keyframes),
+              solve_ms=round((time.perf_counter() - t0) * 1e3, 2))
+        state.track_version += 1  # a closure may move poses and landmarks
+    kf = state.keyframes[-1]
+    state.trajectory[-1] = (state.frame_count, kf.R.copy(), kf.t.copy())
+    if state.traj_ref:
+        state.traj_ref[-1] = None  # keyframe entry: anchored to itself
 
 
 def _post_track(state: VOState, feats, R, t, n_tracked, idx, valid, n_valid,
-                x_new=None, fvalid=None, flow=0.0) -> VOState:
+                x_new=None, fvalid=None, flow=0.0, ground_h=0.0) -> VOState:
     """Everything after the tracking fetch: relocalization fallback,
-    trajectory append, keyframe promotion."""
+    trajectory append, keyframe promotion and its epilogue."""
     req = _decide_keyframe(state, feats, R, t, n_tracked, idx, valid, n_valid, flow=flow)
     if req is not None:
         R2, t2, idx2, valid2, ref_kf = req
         with _span(state, "keyframe"):
             _add_keyframe(state, feats, R2, t2, idx2, valid2, ref_kf=ref_kf,
                           x_new=x_new, fvalid=fvalid)
-        apply_speed_prior(state)
-        kf = state.keyframes[-1]
-        # the windowed BA just refined this pose
-        state.trajectory[-1] = (state.frame_count, kf.R.copy(), kf.t.copy())
-        if state.traj_ref:
-            state.traj_ref[-1] = None
+            _keyframe_epilogue(state, ground_h=ground_h)
         _diag(state, ev="kf", n_kf=len(state.keyframes), n_tracked=int(n_tracked))
     state.frame_count += 1
     return state

@@ -1,7 +1,9 @@
-"""Shared VO numeric rules (twin of the default-path pieces of
-cvsteer_tpu.slam.vo_core): dual-init PnP, projective rescue, the
-triangulation gate, the median matched flow, the per-landmark reprojection
-signal and the culling bar, with the reference's constants.
+"""Shared VO numeric rules (twin of cvsteer_tpu.slam.vo_core): dual-init
+PnP, projective rescue, the triangulation gate, the median matched flow,
+the per-landmark reprojection signal and the culling bar, the ground-plane
+height observation and its controller, and the keyframe signature and
+closure-candidate rule, with the reference's constants. The fleet's
+constant-velocity prediction waits for the serving port.
 
 Every rule here also runs inside the device engine's captured CUDA graphs
 (slam.vo_device), so none reads a tensor on the host, indexes with a 0-dim
@@ -25,6 +27,35 @@ MAX_LM_COORD = 1e4
 MAX_PRED_ROT_DEG = 30.0
 #: constant-velocity guard: reject per-frame translations beyond this
 MAX_PRED_SHIFT = 10.0
+
+# --- ground-prior control law (see slam.vo.apply_ground_prior) -------------
+#: ignore scale errors below this log-ratio
+GROUND_DEADBAND = 0.015
+#: proportional gain on the log-scale error
+GROUND_GAIN = 0.5
+#: per-promotion step cap near convergence (log-ratio)
+GROUND_MAX_STEP = 0.05
+#: FAR regime threshold and its larger step cap (the init transient)
+GROUND_FAR = 0.15
+GROUND_MAX_STEP_FAR = 0.15
+
+
+def ground_controller(h_obs, do_obs, hist, *, target):
+    """The in-step ground-prior controller: (hist', r).
+
+    ``h_obs`` this frame's height observation (0 = none), ``do_obs`` whether
+    to record it, ``hist [3]`` the rolling observation window (newest
+    first). Returns the updated window and the correction ratio r to apply
+    as a similarity about the newest camera center: 1.0 inside the deadband
+    or while the window is cold. The tensor twin of the host law
+    (slam.vo.ground_correction_ratio over smoothed_ground)."""
+    hist2 = torch.where(do_obs, torch.cat([h_obs.reshape(1), hist[:-1]]), hist)
+    h_sm = torch.sort(hist2).values[1]  # median of 3; 0 while a slot is cold
+    e = torch.where(h_sm > 1e-9, torch.log(target / torch.clamp_min(h_sm, 1e-9)), 0.0)
+    cap = torch.where(e.abs() > GROUND_FAR, GROUND_MAX_STEP_FAR, GROUND_MAX_STEP)
+    r = torch.exp(torch.clamp(GROUND_GAIN * e, -cap, cap))
+    apply = do_obs & (e.abs() >= GROUND_DEADBAND)
+    return hist2, torch.where(apply, r, 1.0)
 
 
 def pnp_dual_refine(
@@ -130,3 +161,48 @@ def masked_mean_reproj(final, problem):
 def cull_bar(huber_delta) -> float:
     """Reprojection-error culling threshold: 3x the Huber width, floored."""
     return 3.0 * max(float(huber_delta), 1e-4)
+
+
+def ground_height_obs(X, use, v_pix, R, t, cy, *, min_pts=8):
+    """Camera-frame height of the dominant consistent-height cluster of
+    bottom-of-image tracked landmarks: the ground-plane scale observation.
+
+    Selection: tracked associations (``use``) whose observing pixel row
+    ``v_pix`` lies below 1.25 cy, with positive height and depth in the
+    pose (R, t). Each selected point votes for the points within +-8 % of
+    its own height; the best-supported point's band is the ground (walls
+    below camera height spread their heights, the ground shares one), and
+    the estimate is its mean height. 0.0 when fewer than ``min_pts`` points
+    support it."""
+    p = X @ R.T + t
+    y = p[:, 1]
+    sel = use & (v_pix > 1.25 * cy) & (y > 1e-3) & (p[:, 2] > MIN_TRI_DEPTH)
+    pair_ok = (
+        ((y[None, :] - y[:, None]).abs() < 0.08 * y[:, None]) & sel[None, :] & sel[:, None]
+    )
+    best = torch.argmax(pair_ok.to(torch.float32).sum(1))
+    band = pair_ok[best.reshape(1)][0]
+    cnt = band.to(torch.float32).sum()
+    h = torch.where(band, y, 0.0).sum() / torch.clamp_min(cnt, 1.0)
+    return torch.where(cnt >= min_pts, h, 0.0)
+
+
+def signature_device(desc, valid):
+    """Keyframe global descriptor: the mean of the valid local descriptors,
+    L2-normalized (slam.vo.keyframe_signature is the host twin)."""
+    cnt = valid.to(torch.float32).sum()
+    s = torch.where(valid[..., None], desc, 0.0).sum(-2) / torch.clamp_min(cnt, 1.0)
+    n = torch.linalg.vector_norm(s)
+    return torch.where(n > 1e-9, s / torch.clamp_min(n, 1e-30), s)
+
+
+def closure_candidates(sigs, sig_new, j, *, min_gap, top):
+    """Top-``top`` closure candidate rows for a new keyframe that will take
+    index ``j``, against signature-store rows [0, j - min_gap]; masked rows
+    score -inf. Returns (idx [top], score [top]). ``torch.topk`` orders
+    ties otherwise than ``lax.top_k``: compare candidates as sets."""
+    s = sigs @ sig_new
+    rows = torch.arange(sigs.shape[0], device=sigs.device)
+    s = torch.where(rows <= j - min_gap, s, -torch.inf)
+    score, idx = torch.topk(s, top)
+    return idx, score

@@ -32,15 +32,30 @@ The map's tensors are static buffers: uploads write into them with
 (N, D, W, Lmax), so the two graphs are captured once and never again
 (:attr:`DeviceVO.captures`). On the CPU the same two halves run eagerly.
 
-Rare events stay on the host: two-view bootstrap and relocalization after
-tracking loss sync the device state down, run the host engine's logic and
-upload the result. Loop closure, the ground prior, chunked stepping and
-the fleets are not ported yet (ROADMAP.md).
+With ``VOConfig.loop_closure`` T also computes the frame's keyframe
+signature and its closure candidates against the signature store
+(``sig``, ``sig_n``), and P appends the signature on promotion; with
+``ground_height_m > 0`` T observes the ground height and P runs the ground
+controller (``ground_hist``) and rescales the window and the live map
+about the newest camera center. Both are static structure fixed at
+capture.
+
+Rare events stay on the host: two-view bootstrap, relocalization after
+tracking loss, a speed-prior clamp and a loop-closure event sync the
+device state down, run the host engine's logic (slam.vo, slam.loopclosure
+on this engine's device) and write the result back into the same buffers.
+
+Waiting for the serving port (ROADMAP.md): the fleets' host ground path
+(the reference's ``_ground_prior`` / ``_ground_rescale_jit``), chunked
+stepping and closure deferral inside a chunk (``_defer_closure``,
+``_pending_closure``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -79,12 +94,13 @@ class DeviceMap(NamedTuple):
     lm_desc  [Lmax, D]   per-landmark descriptor (the newest keyframe
                          observation wins): the matching target of
                          ``VOConfig.track_local_map``.
-    sig, sig_n           the loop-closure signature store; None until loop
-                         closure is ported.
+    sig      [Kcap, D]   every keyframe's signature (VOConfig.loop_closure;
+                         None otherwise), Kcap = loop_sig_capacity.
+    sig_n    []          int32 keyframes indexed (== the next row).
     since_kf []          int32 frames since the last promotion: the step
                          computes the forced promotion gap itself.
-    ground_hist          the ground-prior controller; None until the
-                         ground prior is ported.
+    ground_hist [3]      the ground controller's last height observations
+                         (ground_height_m > 0; None otherwise).
     """
 
     X: torch.Tensor
@@ -120,6 +136,10 @@ class StepOut(NamedTuple):
     obs_new: Optional[np.ndarray] = None  # [N] the new keyframe's obs table
     obs_gen: Optional[np.ndarray] = None  # [N] generation stamps of obs_new
     lm_count: Optional[int] = None  # occupied landmark slots
+    ground_h: float = 0.0  # ground-height observation (0 = off / too few)
+    ground_r: Optional[float] = None  # the controller's ratio (P ran, prior on)
+    cand_idx: Optional[np.ndarray] = None  # [M] closure candidates (store on)
+    cand_score: Optional[np.ndarray] = None  # [M] their cosines (-inf masked)
 
 
 def _free_slots(lm_valid):
@@ -221,16 +241,17 @@ def _window_ba(m: DeviceMap, *, iterations, huber_delta) -> DeviceMap:
     return m._replace(X=X, lm_valid=lm_valid, lm_gen=lm_gen, kf_obs=kf_obs, kf_R=kf_R, kf_t=kf_t)
 
 
-def _promote(m: DeviceMap, uv_new, desc, fvalid, idx, obs_pre, R, t,
+def _promote(m: DeviceMap, uv_new, desc, fvalid, idx, obs_pre, R, t, sig_new=None,
              *, iterations, huber_delta, tri_angle=1.0) -> DeviceMap:
     """Keyframe promotion on the device: inheritance, triangulation, gate,
-    eviction, slot allocation, descriptor refresh, ring shift, windowed BA,
-    culling.
+    eviction, slot allocation, descriptor refresh, ring shift, signature
+    append, windowed BA, culling.
 
     ``obs_pre [N]``: the new frame's inherited landmark associations (from
     the keyframe match, or the landmark-store match in local-map mode).
     ``idx [N]`` is always the keyframe match: a fresh landmark needs the
-    previous view."""
+    previous view. ``sig_new [D]``: the frame's signature, written to the
+    store's next row (dropped past the store's capacity)."""
     N = uv_new.shape[0]
     W = m.kf_obs.shape[0]
     Lmax = m.X.shape[0]
@@ -288,6 +309,14 @@ def _promote(m: DeviceMap, uv_new, desc, fvalid, idx, obs_pre, R, t,
     def shift(a, new_row):  # drop the oldest ring slot, append at W-1
         return torch.cat([a[1:], new_row[None]])
 
+    if m.sig is not None:
+        fits = m.sig_n < m.sig.shape[0]
+        row = torch.where(fits, m.sig_n, 0).long().reshape(1)
+        keep = m.sig.index_select(0, row)[0]
+        m = m._replace(
+            sig=m.sig.index_copy(0, row, torch.where(fits, sig_new, keep)[None]),
+            sig_n=m.sig_n + 1,
+        )
     m = m._replace(
         X=X,
         lm_valid=lm_valid,
@@ -317,6 +346,7 @@ class _TrackOut(NamedTuple):
     n_valid: torch.Tensor
     lost: torch.Tensor
     promote: torch.Tensor
+    ground_h: torch.Tensor  # ground-height observation (0 when off)
 
 
 def _inherit(N, use, feat, ids):
@@ -333,8 +363,11 @@ def _track_phase(
     m: DeviceMap, yx, desc, fvalid, Rp, tp, force_kf,
     *, K, ratio, track_iters, huber_delta, min_track, dual_init,
     local_map=False, rescue_radius=0.0, rescue_min_cos=0.6, kf_min_flow=0.0,
+    ground_prior=False,
 ) -> _TrackOut:
-    """Match + PnP tracking + the keyframe decision. Reads ``m`` only."""
+    """Match + PnP tracking + the keyframe decision, and with
+    ``ground_prior`` the ground-height observation of the mode's tracked
+    associations. Reads ``m`` only."""
     N = yx.shape[0]
     Lmax = m.X.shape[0]
     uv_new = normalize_pixels(yx, K)
@@ -388,10 +421,42 @@ def _track_phase(
     else:
         flow_kf = torch.zeros((), dtype=torch.bool, device=yx.device)
     promote = (~lost) & ((n < min_track) | force_kf | flow_kf) & (n_valid >= 16)
+    if ground_prior:
+        v_of = idx_lm if local_map else idx  # the mode's match table
+        ground_h = vo_core.ground_height_obs(
+            X_t, use, yx[v_of.clamp_min(0), 0], R, t, float(K.cy)
+        )
+    else:
+        ground_h = torch.zeros((), dtype=R.dtype, device=R.device)
     return _TrackOut(
         uv_new=uv_new, idx=idx, obs_pre=obs_pre, R=R, t=t,
-        n=n, n_valid=n_valid, lost=lost, promote=promote,
+        n=n, n_valid=n_valid, lost=lost, promote=promote, ground_h=ground_h,
     )
+
+
+def _sig_phase(m: DeviceMap, desc, fvalid, *, loop_min_gap, loop_cands):
+    """The frame's signature and its closure candidates against the store:
+    (sig_new [D], cand_idx [M], cand_score [M]). Runs every frame (a
+    [Kcap, D] matvec and a top-k) so that T's fetch has one shape."""
+    sig_new = vo_core.signature_device(desc, fvalid)
+    cand_idx, cand_score = vo_core.closure_candidates(
+        m.sig, sig_new, m.sig_n, min_gap=loop_min_gap, top=loop_cands
+    )
+    return sig_new, cand_idx, cand_score
+
+
+def _ground_step(m: DeviceMap, ground_h, *, target):
+    """The in-step ground controller after a promotion
+    (vo_core.ground_controller): record the observation, and rescale the
+    live landmarks and the live ring poses about the newest camera center
+    by its ratio, a gauge-exact similarity. Returns (map, ratio)."""
+    hist, r = vo_core.ground_controller(ground_h, ground_h > 0, m.ground_hist, target=target)
+    c0 = -m.kf_R[-1].T @ m.kf_t[-1]
+    X = torch.where(m.lm_valid[:, None], c0 + (m.X - c0) * r, m.X)
+    C = -torch.einsum("wij,wi->wj", m.kf_R, m.kf_t)
+    Cs = c0 + (C - c0) * r
+    kf_t = torch.where(m.kf_live[:, None], -torch.einsum("wij,wj->wi", m.kf_R, Cs), m.kf_t)
+    return m._replace(X=X, kf_t=kf_t, ground_hist=hist), r
 
 
 class _IO(NamedTuple):
@@ -406,17 +471,26 @@ class _IO(NamedTuple):
     obs_pre: torch.Tensor  # [N] int32
     R: torch.Tensor  # [3, 3]
     t: torch.Tensor  # [3]
-    t_out: torch.Tensor  # [16] int32: R, t (float32 bits), n, n_valid, promote, lost
-    p_out: torch.Tensor  # [12 W + 2 N + 1] int32: kf_R, kf_t (bits), obs_new, obs_gen, lm_count
+    sig_new: torch.Tensor  # [D] T -> P: the frame's signature (loop closure)
+    ground_h: torch.Tensor  # [] T -> P: the ground-height observation
+    # [17 + 2 M] int32: R, t (float32 bits), n, n_valid, promote, lost,
+    # ground_h (bits), cand_idx [M], cand_score [M] (bits); M = 0 without
+    # loop closure
+    t_out: torch.Tensor
+    # [12 W + 2 N + 3] int32: kf_R, kf_t (bits), obs_new, obs_gen,
+    # lm_count, ground_h, ground_r (bits)
+    p_out: torch.Tensor
 
 
 def _bits(a):
     return a.reshape(-1).view(torch.int32)
 
 
-def _track_half(m: DeviceMap, io: _IO, *, kf_max_gap, **track) -> None:
+def _track_half(m: DeviceMap, io: _IO, *, kf_max_gap, loop_min_gap, loop_cands,
+                **track) -> None:
     """T: the track phase on the frame in ``io``, the forced gap counted
-    from ``since_kf``; updates ``m.since_kf`` and T's outputs in ``io``."""
+    from ``since_kf``, and the signature phase when the store is carried;
+    updates ``m.since_kf`` and T's outputs in ``io``."""
     if kf_max_gap:
         force = m.since_kf + 1 >= kf_max_gap
     else:
@@ -428,24 +502,39 @@ def _track_half(m: DeviceMap, io: _IO, *, kf_max_gap, **track) -> None:
     for dst, src in ((io.uv_new, tr.uv_new), (io.idx, tr.idx), (io.obs_pre, tr.obs_pre),
                      (io.R, tr.R), (io.t, tr.t)):
         dst.copy_(src)
+    io.ground_h.copy_(tr.ground_h)
     flags = torch.stack([a.to(torch.int32) for a in (tr.n, tr.n_valid, tr.promote, tr.lost)])
-    io.t_out.copy_(torch.cat([_bits(tr.R), _bits(tr.t), flags]))
+    parts = [_bits(tr.R), _bits(tr.t), flags, _bits(tr.ground_h)]
+    if m.sig is not None:
+        sig_new, cand_idx, cand_score = _sig_phase(
+            m, io.desc, io.fvalid, loop_min_gap=loop_min_gap, loop_cands=loop_cands
+        )
+        io.sig_new.copy_(sig_new)
+        parts += [cand_idx.to(torch.int32), _bits(cand_score)]
+    io.t_out.copy_(torch.cat(parts))
 
 
-def _promote_half(m: DeviceMap, io: _IO, *, iterations, huber_delta, tri_angle) -> None:
-    """P: the promotion of the frame in ``io`` with T's outputs, written in
-    place into ``m``'s buffers; the fetch row into ``io.p_out``."""
+def _promote_half(m: DeviceMap, io: _IO, *, iterations, huber_delta, tri_angle,
+                  ground_target) -> None:
+    """P: the promotion of the frame in ``io`` with T's outputs, then the
+    ground controller when the map carries one, written in place into
+    ``m``'s buffers; the fetch row into ``io.p_out``."""
     m2 = _promote(
         m, io.uv_new, io.desc, io.fvalid, io.idx, io.obs_pre, io.R, io.t,
+        io.sig_new if m.sig is not None else None,
         iterations=iterations, huber_delta=huber_delta, tri_angle=tri_angle,
     )
+    if m.ground_hist is not None:
+        m2, g_r = _ground_step(m2, io.ground_h, target=ground_target)
+    else:
+        g_r = torch.ones((), dtype=io.R.dtype, device=io.R.device)
     for dst, src in zip(m, m2):
         if dst is not None and src is not dst:
             dst.copy_(src)
     obs_new = m.kf_obs[-1]
     io.p_out.copy_(torch.cat([
         _bits(m.kf_R), _bits(m.kf_t), obs_new, m.lm_gen[obs_new.clamp_min(0).long()],
-        m.lm_valid.sum(dtype=torch.int32)[None],
+        m.lm_valid.sum(dtype=torch.int32)[None], _bits(io.ground_h), _bits(g_r),
     ]))
 
 
@@ -494,6 +583,8 @@ class DeviceVO:
         self._host_dirty = False  # the device holds newer landmark positions
         # host mirror of the slot generations (zeros before the first upload)
         self._lm_gen = np.zeros(config.max_landmarks, np.int32)
+        self.closures_accepted = 0
+        self._closure_cooldown = 0  # promotions until the next closure event
 
     @property
     def initialized(self) -> bool:
@@ -512,11 +603,12 @@ class DeviceVO:
             # the single refinement's
             dual_init=cfg.motion_model, local_map=cfg.track_local_map,
             rescue_radius=cfg.rescue_radius_norm, rescue_min_cos=cfg.rescue_min_cos,
-            kf_min_flow=cfg.kf_min_flow_norm,
+            kf_min_flow=cfg.kf_min_flow_norm, ground_prior=cfg.ground_height_m > 0,
+            loop_min_gap=cfg.loop_min_gap, loop_cands=cfg.loop_max_candidates,
         )
         promote = dict(
             iterations=cfg.ba_iterations, huber_delta=cfg.huber_delta,
-            tri_angle=cfg.tri_min_ray_angle_deg,
+            tri_angle=cfg.tri_min_ray_angle_deg, ground_target=float(cfg.ground_height_m),
         )
         return track, promote
 
@@ -579,20 +671,27 @@ class DeviceVO:
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
+        loop = cfg.loop_closure
+        M = cfg.loop_max_candidates if loop else 0
         self._bufs = DeviceMap(
             X=z((Lmax, 3), f32), lm_valid=z(Lmax, b), lm_gen=z(Lmax, i32),
             kf_uv=z((W, N, 2), f32), kf_fvalid=z((W, N), b), kf_obs=z((W, N), i32),
             kf_R=z((W, 3, 3), f32), kf_t=z((W, 3), f32), kf_live=z(W, b),
-            kf_desc=z((N, D), f32), lm_desc=z((Lmax, D), f32), since_kf=z((), i32),
+            kf_desc=z((N, D), f32), lm_desc=z((Lmax, D), f32),
+            sig=z((cfg.loop_sig_capacity, D), f32) if loop else None,
+            sig_n=z((), i32) if loop else None, since_kf=z((), i32),
+            ground_hist=z(3, f32) if cfg.ground_height_m > 0 else None,
         )
+        n_t, n_p = 17 + 2 * M, 12 * W + 2 * N + 3
         self._io = _IO(
             yx=z((N, 2), f32), desc=z((N, D), f32), fvalid=z(N, b), pose=z(12, f32),
             uv_new=z((N, 2), f32), idx=z(N, torch.int64), obs_pre=z(N, i32),
-            R=z((3, 3), f32), t=z(3, f32), t_out=z(16, i32), p_out=z(12 * W + 2 * N + 1, i32),
+            R=z((3, 3), f32), t=z(3, f32), sig_new=z(D, f32), ground_h=z((), f32),
+            t_out=z(n_t, i32), p_out=z(n_p, i32),
         )
         pin = self.device.type == "cuda"
-        self._t_host = torch.zeros(16, dtype=i32, pin_memory=pin)
-        self._p_host = torch.zeros(12 * W + 2 * N + 1, dtype=i32, pin_memory=pin)
+        self._t_host = torch.zeros(n_t, dtype=i32, pin_memory=pin)
+        self._p_host = torch.zeros(n_p, dtype=i32, pin_memory=pin)
         self._pose_host = torch.zeros(12, dtype=f32, pin_memory=pin)
 
     def _upload(self) -> None:
@@ -646,6 +745,17 @@ class DeviceVO:
             kf_fvalid=fv, kf_obs=obs, kf_R=Rw, kf_t=tw, kf_live=lv, lm_desc=lm_desc,
             since_kf=np.asarray(max(st.frame_count - 1 - kf_last.index, 0), np.int32),
         )
+        if m.sig is not None:
+            # every keyframe's signature (cached on the keyframe), up to the
+            # store's capacity
+            sig = np.zeros(tuple(m.sig.shape), np.float32)
+            for k, kf in enumerate(st.keyframes[: sig.shape[0]]):
+                if kf.signature is None:
+                    kf.signature = hostvo.keyframe_signature(kf.features)
+                sig[k] = kf.signature
+            host.update(sig=sig, sig_n=np.asarray(len(st.keyframes), np.int32))
+        if m.ground_hist is not None:
+            host["ground_hist"] = np.asarray((list(st.ground_hist[-3:]) + [0.0] * 3)[:3], np.float32)
         for name, a in host.items():
             getattr(m, name).copy_(torch.as_tensor(a))
         m.kf_desc.copy_(kf_last.features.desc)  # a copy: the keyframe keeps its own
@@ -732,9 +842,13 @@ class DeviceVO:
             io.pose.copy_(self._pose_host, non_blocking=True)
             self._run_half(0)
             h = self._fetch(io.t_out, self._t_host)
+            M = (h.shape[0] - 17) // 2
             out = StepOut(
                 R=h[:9].view(np.float32).reshape(3, 3).copy(), t=h[9:12].view(np.float32).copy(),
                 n_tracked=int(h[12]), n_valid=int(h[13]), promoted=bool(h[14]), lost=bool(h[15]),
+                ground_h=float(h[16:17].view(np.float32)[0]),
+                cand_idx=h[17:17 + M].copy() if M else None,
+                cand_score=h[17 + M:].view(np.float32).copy() if M else None,
             )
         self._host_dirty = True
         if not out.promoted:
@@ -749,7 +863,10 @@ class DeviceVO:
                 kf_t=h[9 * W: 12 * W].view(np.float32).reshape(W, 3).copy(),
                 obs_new=h[12 * W: 12 * W + N].copy(),
                 obs_gen=h[12 * W + N: 12 * W + 2 * N].copy(),
-                lm_count=int(h[-1]),
+                lm_count=int(h[-3]),
+                ground_r=(
+                    float(h[-1:].view(np.float32)[0]) if cfg.ground_height_m > 0 else None
+                ),
             )
 
     def complete(self, feats: Features, fetched: StepOut) -> None:
@@ -792,7 +909,15 @@ class DeviceVO:
             self._mirror_window(kf_R, kf_t)
             st.trajectory[-1] = (st.frame_count, kf_R[-1].copy(), kf_t[-1].copy())
             st.traj_ref[-1] = None  # keyframe entry: anchored to itself
-            hostvo.apply_speed_prior(st)  # record only: the band is not ported
+            if fetched.ground_r is not None:
+                # P's controller already corrected the device state: mirror
+                # the bookkeeping (the ring poses came home corrected)
+                if fetched.ground_h > 0:
+                    hostvo.smoothed_ground(st, fetched.ground_h)
+                if abs(fetched.ground_r - 1.0) > 1e-9:
+                    st.track_version += 1
+                    hostvo._diag(st, ev="ground", h=fetched.ground_h, r=fetched.ground_r)
+            self._speed_prior()  # record only when the band is off
             if st.diag is not None and len(st.keyframes) >= 2:
                 kf, prev = st.keyframes[-1], st.keyframes[-2]
                 hostvo._diag(
@@ -801,7 +926,108 @@ class DeviceVO:
                     gap=int(kf.index - prev.index), n_tracked=fetched.n_tracked,
                     reason="track" if fetched.n_tracked < cfg.track_min_landmarks else "gap",
                 )
+            if cfg.loop_closure:
+                self._closure_event(fetched)
         st.frame_count += 1
+
+    def _closure_event(self, fetched: StepOut) -> None:
+        """After a promotion: the store-capacity warning, the cooldown, then
+        the gate on T's candidates (loopclosure.closure_gate, no device
+        work) and, when it passes, the closure event."""
+        from cvsteer_tpu_torch.slam.loopclosure import closure_gate
+
+        st = self.state
+        cfg = st.config
+        if len(st.keyframes) == cfg.loop_sig_capacity + 1:
+            warnings.warn(
+                f"device signature store full: keyframe {len(st.keyframes)} > "
+                f"loop_sig_capacity {cfg.loop_sig_capacity}; later keyframes are not "
+                "indexed for closure detection. Raise VOConfig.loop_sig_capacity.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        cand = (fetched.cand_idx, fetched.cand_score)
+        if self._closure_cooldown > 0:
+            self._closure_cooldown -= 1
+        elif closure_gate(st, *cand, min_gap=cfg.loop_min_gap,
+                          threshold=cfg.loop_signature_threshold):
+            self._closure(cand)
+
+    def _closure(self, candidates=None) -> None:
+        """A closure event: sync the device state down, run close_loops (or
+        close_loops_sim3) on this engine's device, and write the corrected
+        poses and landmarks back into the captured buffers."""
+        from cvsteer_tpu_torch.slam.loopclosure import close_loops, close_loops_sim3
+
+        t0 = time.perf_counter()
+        st = self.sync_host()
+        t_sync = time.perf_counter()
+        cfg = st.config
+        closer = close_loops_sim3 if cfg.loop_closure_sim3 else close_loops
+        n = closer(
+            st, min_gap=cfg.loop_min_gap, min_inliers=cfg.loop_min_inliers,
+            huber_delta=cfg.loop_robust_delta, candidates=candidates,
+            signature_threshold=cfg.loop_signature_threshold,
+        )
+        if n:
+            self.closures_accepted += n
+            self._closure_cooldown = cfg.loop_cooldown
+        elif cfg.loop_reject_cooldown:
+            # engine-wide breather after a rejected event
+            self._closure_cooldown = max(self._closure_cooldown, cfg.loop_reject_cooldown // 3)
+        hostvo._diag(
+            st, ev="closure", accepted=int(n), K=len(st.keyframes),
+            sync_ms=round((t_sync - t0) * 1e3, 2),
+            solve_ms=round((time.perf_counter() - t_sync) * 1e3, 2),
+        )
+        if not n:
+            return  # rejected: nothing changed
+        st.track_version += 1
+        kf = st.keyframes[-1]
+        st.trajectory[-1] = (st.frame_count, kf.R.copy(), kf.t.copy())
+        self._upload_poses_landmarks()
+
+    def _upload_poses_landmarks(self) -> None:
+        """Write back what a closure moved: landmark positions and occupancy
+        and the ring poses, by ``copy_`` into the captured buffers (never
+        rebinding them); descriptors, signatures, observation tables and
+        generations are untouched by a closure. The ring's membership has
+        not changed since the preceding sync."""
+        st = self.state
+        m = self.map
+        W = int(m.kf_R.shape[0])
+        live = st.keyframes[-min(len(st.keyframes), W):]
+        Rw = np.broadcast_to(np.eye(3, dtype=np.float32), (W, 3, 3)).copy()
+        tw = np.zeros((W, 3), np.float32)
+        for w, kf in zip(range(W - len(live), W), live):
+            Rw[w], tw[w] = kf.R, kf.t
+        for dst, a in ((m.X, st.landmarks), (m.lm_valid, st.landmark_valid),
+                       (m.kf_R, Rw), (m.kf_t, tw)):
+            dst.copy_(torch.as_tensor(a))
+        self._host_dirty = False
+
+    def _speed_prior(self) -> None:
+        """The kinematic clamp of the newest keyframe's baseline
+        (vo.apply_speed_prior): the check runs on the host pose mirrors;
+        only a violation pays a sync, the host correction of the pose and
+        this promotion's fresh landmarks, and an upload into the buffers."""
+        st = self.state
+        cfg = st.config
+        if len(st.keyframes) < 2:
+            return
+        kf, prev = st.keyframes[-1], st.keyframes[-2]
+        gap = max(kf.index - prev.index, 1)
+        b = float(np.linalg.norm(-kf.R.T @ kf.t + prev.R.T @ prev.t))
+        med = hostvo.median_speed(st)
+        lo, hi = cfg.speed_prior_band
+        if cfg.ground_height_m > 0:
+            hi = 0.0  # the absolute ground reference wins (vo.apply_speed_prior)
+        if hi > 0 and med is not None and not (lo * med * gap <= b <= hi * med * gap):
+            self.sync_host()
+            hostvo.apply_speed_prior(st, fresh_ids=hostvo._fresh_ids_of_last_kf(st))
+            self._upload()
+            return
+        hostvo.apply_speed_prior(st)  # in band: record the speed only
 
     def _handle_lost(self, feats: Features) -> None:
         """Tracking loss: sync down, run the host relocalize/track path for

@@ -1,8 +1,9 @@
 """Carry the reference package's parameters and state into the port.
 
 The system has no weights: its parameters are tap banks and configs, its
-per-frame state is a Features set, and the device VO engine carries a
-DeviceMap from frame to frame. These helpers take the reference
+per-frame state is a Features set, the VO engines carry a keyframed
+VOState (the device engine a DeviceMap beside it) from frame to frame, and
+loop closure optimizes Poses/PoseGraph and Sim3/Sim3Graph. These helpers take the reference
 package's values as plain Python/numpy objects (NamedTuples, numpy or
 array-like fields; anything with the same field names) and build the port's
 types, so tests feed both packages identical inputs. Nothing here imports
@@ -105,3 +106,85 @@ def device_map(m, device="cuda") -> DeviceMap:
         )
         for f in DeviceMap._fields
     })
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+
+def poses(p, device="cuda"):
+    """A reference posegraph.Poses (R, t) -> the port's."""
+    from cvsteer_tpu_torch.slam.posegraph import Poses
+
+    return Poses(R=_f32(p.R, device), t=_f32(p.t, device))
+
+
+def pose_graph(g, device="cuda"):
+    """A reference posegraph.PoseGraph -> the port's."""
+    from cvsteer_tpu_torch.slam.posegraph import PoseGraph
+
+    return PoseGraph(
+        i=torch.as_tensor(np.array(g.i, dtype=np.int32), device=device),
+        j=torch.as_tensor(np.array(g.j, dtype=np.int32), device=device),
+        R_z=_f32(g.R_z, device), t_z=_f32(g.t_z, device), weight=_f32(g.weight, device),
+        fixed=torch.as_tensor(np.array(g.fixed, dtype=bool), device=device),
+    )
+
+
+def sim3(s, device="cuda"):
+    """A reference sim3.Sim3 (s, R, t) -> the port's."""
+    from cvsteer_tpu_torch.slam.sim3 import Sim3
+
+    return Sim3(s=_f32(s.s, device), R=_f32(s.R, device), t=_f32(s.t, device))
+
+
+def sim3_graph(g, device="cuda"):
+    """A reference posegraph_sim3.Sim3Graph -> the port's."""
+    from cvsteer_tpu_torch.slam.posegraph_sim3 import Sim3Graph
+
+    pg = pose_graph(g, device)
+    return Sim3Graph(i=pg.i, j=pg.j, s_z=_f32(g.s_z, device), R_z=pg.R_z, t_z=pg.t_z,
+                     weight=pg.weight, fixed=pg.fixed)
+
+
+def _copy(a, dtype=None):
+    return None if a is None else np.array(a, dtype=dtype)
+
+
+def vo_state(s, device="cuda"):
+    """A reference (keyframed) VOState -> the port's on ``device``: the
+    config, keyframes (features on the device; poses, landmark tables,
+    stamps, fresh ids and cached signatures copied), the landmark mirror,
+    the trajectory with its re-anchoring records, and the bookkeeping of
+    the priors and of the closure gate. The signature index and the
+    diagnostic log start empty."""
+    from cvsteer_tpu_torch.slam.vo import Keyframe, VOState
+
+    kfs = [
+        Keyframe(
+            index=int(kf.index),
+            features=None if kf.features is None else features(kf.features, device),
+            R=np.array(kf.R, np.float32), t=np.array(kf.t, np.float32),
+            landmark_ids=np.array(kf.landmark_ids, np.int64),
+            landmark_gens=_copy(kf.landmark_gens, np.int32),
+            fresh_ids=_copy(kf.fresh_ids, np.int64),
+            signature=_copy(kf.signature, np.float32),
+        )
+        for kf in s.keyframes
+    ]
+    return VOState(
+        config=vo_config(s.config), device=torch.device(device), keyframes=kfs,
+        landmarks=np.array(s.landmarks, np.float32),
+        landmark_valid=np.array(s.landmark_valid, bool),
+        num_landmarks=int(s.num_landmarks),
+        trajectory=[(int(f), np.array(R, np.float32), np.array(t, np.float32))
+                    for f, R, t in s.trajectory],
+        traj_ref=[None if r is None else (int(r[0]), np.array(r[1], np.float32),
+                                          np.array(r[2], np.float32), int(r[3]), float(r[4]))
+                  for r in s.traj_ref],
+        initialized=bool(s.initialized), frame_count=int(s.frame_count),
+        track_version=int(s.track_version), lost_streak=int(s.lost_streak),
+        kf_baselines=[float(b) for b in s.kf_baselines],
+        loop_streak=tuple(s.loop_streak), loop_reject_until=dict(s.loop_reject_until),
+        ground_hist=[float(h) for h in s.ground_hist],
+    )

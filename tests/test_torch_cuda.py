@@ -442,6 +442,336 @@ def test_torch_cuda_vo_captures_twice_and_never_again():
     assert len(st.trajectory) == 26 and np.isfinite(st.poses()[1]).all()
 
 
+def _city_vo(n_frames):
+    """A DeviceVO on the card with the loop-closure campaign configuration
+    (chip_smoke._city_cfg: the signature store and the ground controller in
+    the graphs), ``n_frames`` CityLoop frames in."""
+    import chip_smoke
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    seq, cfg = chip_smoke._city_cfg()
+    vo = DeviceVO(cfg, device="cuda")
+    for k in range(n_frames):
+        vo.process_image(seq.render(k))
+    return vo, seq
+
+
+@pytest.fixture(scope="module")
+def loop_vo():
+    """The campaign-configured DeviceVO, 24 frames in, with the 25th
+    frame's features in its input buffers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the engine's steps are captured CUDA graphs")
+    from cvsteer_tpu_torch.features.frontend import extract_features
+
+    vo, seq = _city_vo(24)
+    assert vo.map is not None and vo.captures == 2
+    assert vo.map.sig is not None and vo.map.ground_hist is not None
+    feats = extract_features(torch.from_numpy(seq.render(24)).cuda(),
+                             cfg=vo.state.config.frontend)
+    io = vo._io
+    io.yx.copy_(feats.yx)
+    io.desc.copy_(feats.desc)
+    io.fvalid.copy_(feats.valid)
+    kf = vo.state.keyframes[-1]
+    io.pose.copy_(torch.from_numpy(np.concatenate([kf.R.reshape(9), kf.t])))
+    return vo
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["T", "P"])
+def test_torch_cuda_vo_loop_graphs_equal_eager_and_replay(loop_vo, half):
+    """With the signature store and the ground controller in them, each
+    captured half equals the same half run eagerly, bit for bit, and two
+    replays agree (test_torch_cuda_vo_graphs_equal_eager_and_replay's
+    check)."""
+    vo = loop_vo
+    snap = _engine_state(vo)
+    if half == 1:
+        snap = _run_from(vo, snap, 0, eager=False)
+    eager = _run_from(vo, snap, half, eager=True)
+    first = _run_from(vo, snap, half, eager=False)
+    again = _run_from(vo, snap, half, eager=False)
+    names = [f for f, a in zip(vo.map._fields, vo.map) if a is not None] + list(vo._io._fields)
+    for name, e, a, b in zip(names, eager, first, again):
+        assert torch.equal(a, e), f"{name}: the graph differs from the eager half"
+        assert torch.equal(a, b), f"{name}: two replays differ"
+    _run_from(vo, snap, half, eager=False)
+
+
+def test_torch_cuda_vo_closure_upload_keeps_buffers():
+    """The device engine's Sim(3) closure event on the card (the stream of
+    tests/test_loopclosure.py::test_device_vo_sim3_closure_end_to_end_scale_drift,
+    built by chip_smoke's numpy helpers): the drifted state is adopted,
+    tracking continues across the revisit, a closure is accepted and halves
+    the keyframe ATE, and the upload writes into the captured buffers:
+    every buffer keeps its address and no graph is captured again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the engine's steps are captured CUDA graphs")
+    import chip_smoke as cs
+    from cvsteer_tpu_torch.geometry.camera import Intrinsics
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    X, desc = cs._loop_world()
+    rng = np.random.default_rng(11)
+    n_frames = 48
+    gt = [cs._circle_pose(k, n_frames - 1) for k in range(n_frames)]
+    frames = [cs._render_feats(X, desc, R, t, rng) for R, t in gt]
+    cfg = VOConfig(intrinsics=Intrinsics(*cs.LOOP_K), kf_max_gap=4, window=6,
+                   track_min_landmarks=40, min_parallax=0.01)
+    vo = DeviceVO(cfg, device="cuda")
+    for k in range(40):
+        vo.process_frame(frames[k])
+    st = vo.sync_host()
+    assert cs._inject_scale_drift(st, rate=0.07) > 1.8
+    before = cs._kf_ate(st, gt)
+    cfg2 = cfg._replace(loop_closure=True, loop_closure_sim3=True, loop_min_gap=6,
+                        loop_min_inliers=20)
+    st.config = cfg2
+    vo2 = DeviceVO(cfg2, device="cuda")
+    vo2.adopt(st)
+    assert vo2.captures == 2
+    bufs = [a.data_ptr() for a in vo2.map if a is not None]
+    for k in range(40, n_frames):
+        vo2.process_frame(frames[k])
+    final = vo2.finalize()
+    assert vo2.closures_accepted >= 1
+    assert cs._kf_ate(final, gt) < 0.5 * before
+    assert vo2.captures == 2
+    assert [a.data_ptr() for a in vo2.map if a is not None] == bufs
+
+
+@pytest.mark.parametrize("kind", ["se3", "sim3"])
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_torch_cuda_pose_graph_matches_cpu(cuda, kind, solver):
+    """optimize_pose_graph / optimize_pose_graph_sim3 on the card against the
+    same call on the CPU: final cost within 1e-4 relative, poses within
+    1e-3 m and 1e-3 rad (the bars the CPU parity tests hold the port to
+    against the JAX package)."""
+    import chip_smoke as cs
+
+    wd = cs.pgo_world(40, 3, sim3=kind == "sim3")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt, st = cs.pgo_call(wd, dev, kind=kind, iterations=15, solver=solver, cg_iterations=80)
+        out[dev] = (opt.R.cpu(), opt.t.cpu(), float(st.cost), float(st.initial_cost))
+    (Rc, tc, cc, c0), (Rg, tg, cg, _) = out["cpu"], out["cuda"]
+    rot = float((Rc - Rg).abs().max())  # ~ the angle apart, rad
+    print(f"pgo {kind} {solver}: cost {c0:.6g} -> cpu {cc:.6g}, cuda {cg:.6g}; "
+          f"poses {float((tc - tg).abs().max()):.3e} m, {rot:.3e} rad apart (bars 1e-4 rel, 1e-3)")
+    assert cc < 0.5 * c0
+    assert abs(cc - cg) <= 1e-4 * max(abs(cc), 1e-12)
+    assert float((tc - tg).abs().max()) < 1e-3 and rot < 1e-3
+
+
+def test_torch_cuda_vo_first_window_ba_host_and_device(cuda, monkeypatch):
+    """Where the two engines part (phase 5b of chip_smoke.py), on phase 5's
+    40-frame scene: the host engine's first promotion (vo._kf_fused, its
+    real arguments and result) against the device engine's first P (the
+    map and buffers just before it; _promote up to its _window_ba). Both
+    promote the same frame and build the same BA problem: the same
+    cameras, landmarks and observations (checked), in other layouts: the
+    host's has a column per feature of the previous keyframe, most of them
+    empty. The test prints the new keyframe's camera center from each
+    engine, and from the host's problem solved without its empty columns,
+    after 1 LM iteration and after the configured ones; after 1 they agree
+    within 1e-4 m. Then both engines run the 40 frames and the test prints
+    each frame's distance between their tracked camera centers beside the
+    promotions: where the gap opens."""
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam import vo as hostvo
+    from cvsteer_tpu_torch.slam import vo_device as tvd
+    from cvsteer_tpu_torch.slam.ba import BAProblem, BAState, bundle_adjust
+    from cvsteer_tpu_torch.slam.vo import VOConfig, init_vo, process_image
+    from cvsteer_tpu_torch.utils.precision import precise
+
+    cfg = VOConfig()
+    K = cfg.intrinsics
+    seq = PlanesSequence(n_frames=40, image_hw=(480, 640), fx=K.fx, fy=K.fy, cx=K.cx, cy=K.cy,
+                         seed=0)
+    frames = [seq.render(k) for k in range(20)]
+    host = {}
+    kf_fused = hostvo._kf_fused
+
+    def spy_host(*args, **kw):
+        out = kf_fused(*args, **kw)
+        host.setdefault("args", (args, kw, out))
+        return out
+
+    monkeypatch.setattr(hostvo, "_kf_fused", spy_host)
+    st = init_vo(cfg, device="cuda")
+    for k, img in enumerate(frames):
+        process_image(st, img)
+        if host:
+            host["frame"] = k
+            break
+    vo = tvd.DeviceVO(cfg, device="cuda")
+    snap = {}
+    run_half = vo._run_half
+
+    def spy_device(k, eager=False):  # the map and buffers just before the first P
+        if k == 1 and not snap:
+            snap["map"] = tvd.DeviceMap(*(None if a is None else a.clone() for a in vo.map))
+            snap["io"] = tvd._IO(*(a.clone() for a in vo._io))
+        return run_half(k, eager=eager)
+
+    vo._run_half = spy_device
+    for k, img in enumerate(frames):
+        vo.process_image(img)
+        if snap:
+            snap["frame"] = k
+            break
+    assert host and snap and host["frame"] == snap["frame"]
+    grabbed = {}
+    window_ba = tvd._window_ba
+
+    def grab(m, **kw):
+        grabbed["m"] = m
+        return window_ba(m, **kw)
+
+    monkeypatch.setattr(tvd, "_window_ba", grab)
+    m0, io = snap["map"], snap["io"]
+    hd = cfg.huber_delta
+    with precise():
+        tvd._promote(m0, io.uv_new, io.desc, io.fvalid, io.idx, io.obs_pre, io.R, io.t,
+                     tri_angle=cfg.tri_min_ray_angle_deg, iterations=cfg.ba_iterations,
+                     huber_delta=hd)
+    m = grabbed["m"]
+
+    (R_pad, t_pad, X_pad, uv, mask_old, pot, fixed, *_), _, out = host["args"]
+    ok, Xc = out[4], out[5]
+    X = torch.cat([X_pad, torch.where(ok[:, None], Xc, 0.0)])
+    mask = torch.cat([mask_old, pot & ok[None, :]], 1)
+    c_new = int(mask.any(1).sum()) - 1  # real cameras first, the new one last
+    keep = mask.any(0)
+    # the same problem: the device window's observations, as (camera, point) -> uv
+    live = torch.nonzero(m.kf_live).flatten()
+    obs_ok = m.kf_fvalid & (m.kf_obs >= 0)
+    dev_obs = sorted(
+        (c, tuple(m.X[int(m.kf_obs[w, f])].tolist()), tuple(m.kf_uv[w, f].tolist()))
+        for c, w in enumerate(live.tolist()) for f in torch.nonzero(obs_ok[w]).flatten().tolist())
+    host_obs = sorted(
+        (c, tuple(X[n].tolist()), tuple(uv[c, n].tolist()))
+        for c, n in torch.nonzero(mask).tolist())
+    assert dev_obs == host_obs
+
+    def center(R, t):
+        return (-(R.T @ t)).cpu().numpy()
+
+    def solve(Xs, uvs, ms, its):
+        with precise():
+            fin, _ = bundle_adjust(BAState(R=R_pad, t=t_pad, X=Xs),
+                                   BAProblem(uv=uvs, mask=ms, fixed_cameras=fixed, huber_delta=hd),
+                                   iterations=its)
+        return center(fin.R[c_new], fin.t[c_new])
+
+    res = {}
+    for its in (1, cfg.ba_iterations):
+        with precise():
+            dev = window_ba(m, iterations=its, huber_delta=hd)
+        res[its] = dict(device=center(dev.kf_R[-1], dev.kf_t[-1]), host=solve(X, uv, mask, its),
+                        compact=solve(X[keep], uv[:, keep], mask[:, keep], its))
+    engine = center(out[0][c_new], out[1][c_new])
+
+    def apart(a, b):
+        return float(np.abs(a - b).max())
+
+    print(f"first promotion (frame {host['frame']}, {c_new + 1} keyframes, {int(keep.sum())} "
+          f"landmarks, {len(dev_obs)} observations in both engines' problems): the new "
+          "keyframe's camera center, device vs host / host vs the host's problem without its "
+          f"{int((~keep).sum())} empty columns: " + "; ".join(
+              f"{its} it {apart(r['device'], r['host']):.3e} / {apart(r['host'], r['compact']):.3e} m"
+              for its, r in res.items())
+          + f"; the host engine's own result vs its re-solve "
+          f"{apart(engine, res[cfg.ba_iterations]['host']):.3e} m")
+    assert apart(res[1]["device"], res[1]["host"]) < 1e-4
+
+    st_h, vo_d = init_vo(cfg, device="cuda"), tvd.DeviceVO(cfg, device="cuda")
+    gaps, promoted, before_p = [], [], {}
+    run_half_d = vo_d._run_half
+
+    def spy_each_p(k, eager=False):  # the map and buffers just before every P
+        if k == 1:
+            before_p[len(gaps)] = (tvd.DeviceMap(*(None if a is None else a.clone() for a in vo_d.map)),
+                                   tvd._IO(*(a.clone() for a in vo_d._io)))
+        return run_half_d(k, eager=eager)
+
+    vo_d._run_half = spy_each_p
+    for k in range(40):
+        img = seq.render(k)
+        process_image(st_h, img)
+        n_kf = len(vo_d.state.keyframes)
+        vo_d.process_image(img)
+        if len(vo_d.state.keyframes) > n_kf:
+            promoted.append(k)
+        (_, Rh, th), (_, Rd, td) = st_h.trajectory[-1], vo_d.state.trajectory[-1]
+        gaps.append(float(np.abs(Rh.T @ th - Rd.T @ td).max()))
+    first = next((k for k, g in enumerate(gaps) if g > 1e-4), None)
+    print(f"tracked camera centers, host vs device engine: first above 1e-4 m at frame {first}; "
+          f"device promotions at frames {promoted}; gap per frame (m): "
+          + " ".join(f"{k}:{g:.1e}" for k, g in enumerate(gaps)))
+
+    # The promotion where the gap jumps (first above 1e-3 m): its window as
+    # the device built it, solved three ways. (1) _window_ba, the device
+    # engine's BA. (2) bundle_adjust, the host engine's solver, on the same
+    # observations laid out as the host lays out a window: the columns in
+    # another order with empty columns between them. (3) _window_ba with the
+    # new keyframe's start moved 1e-4 m, the tracked gap before the jump.
+    jump = next((k for k in promoted if gaps[k] > 1e-3), None)
+    if jump is None:
+        print("no promotion parts the two engines by more than 1e-3 m")
+        return
+    m0, io = before_p[jump]
+    with precise():
+        tvd._promote(m0, io.uv_new, io.desc, io.fvalid, io.idx, io.obs_pre, io.R, io.t,
+                     tri_angle=cfg.tri_min_ray_angle_deg, iterations=cfg.ba_iterations,
+                     huber_delta=hd)
+    m = grabbed["m"]
+    W = m.kf_obs.shape[0]
+    obs = {}  # (ring slot, landmark slot) -> uv; a keyframe's last feature on a slot wins
+    ok_w = m.kf_live[:, None] & m.kf_fvalid & (m.kf_obs >= 0)
+    for w, f in torch.nonzero(ok_w).tolist():
+        obs[(w, int(m.kf_obs[w, f]))] = m.kf_uv[w, f]
+    slots = sorted({s for _, s in obs})
+    order = np.random.default_rng(0).permutation(len(slots))
+    cols = [None] * len(slots)  # the host-like layout: shuffled, an empty column after each
+    for n, o in enumerate(order):
+        cols[n] = slots[o]
+    cols = [c for s in cols for c in (s, None)]
+    uv_h = torch.zeros(W, len(cols), 2, device="cuda")
+    mask_h = torch.zeros(W, len(cols), dtype=torch.bool, device="cuda")
+    X_h = torch.zeros(len(cols), 3, device="cuda")
+    for n, s in enumerate(cols):
+        if s is None:
+            continue
+        X_h[n] = m.X[s]
+        for w in range(W):
+            if (w, s) in obs:
+                uv_h[w, n], mask_h[w, n] = obs[(w, s)], True
+    first_real = W - int(m.kf_live.sum())
+    fixed_h = (~m.kf_live) | (torch.arange(W, device="cuda") < first_real + 2)
+    t_moved = m.kf_t.clone()
+    t_moved[-1] += 1e-4 / np.sqrt(3.0)
+    res = {}
+    for its in (1, cfg.ba_iterations):
+        with precise():
+            dev = window_ba(m, iterations=its, huber_delta=hd)
+            fin, _ = bundle_adjust(BAState(R=m.kf_R, t=m.kf_t, X=X_h),
+                                   BAProblem(uv=uv_h, mask=mask_h, fixed_cameras=fixed_h,
+                                             huber_delta=hd), iterations=its)
+            moved = window_ba(m._replace(kf_t=t_moved), iterations=its, huber_delta=hd)
+        res[its] = dict(device=center(dev.kf_R[-1], dev.kf_t[-1]),
+                        host=center(fin.R[-1], fin.t[-1]),
+                        moved=center(moved.kf_R[-1], moved.kf_t[-1]))
+    print(f"promotion at frame {jump} (gap {gaps[jump - 1]:.1e} -> {gaps[jump]:.1e} m; "
+          f"{len(slots)} landmarks, {len(obs)} observations, {int(m.kf_live.sum())} keyframes): "
+          "the new keyframe's camera center, device BA vs the host's solver on the host-like "
+          "layout / device BA vs itself from a start moved 1e-4 m: " + "; ".join(
+              f"{its} it {apart(r['device'], r['host']):.3e} / {apart(r['device'], r['moved']):.3e} m"
+              for its, r in res.items()))
+    assert apart(res[1]["device"], res[1]["host"]) < 1e-4
+
+
 # ---------------------------------------------------------------------------
 # The measurement probes' kernels G, S, V and M (ops.cuda_probes)
 # ---------------------------------------------------------------------------

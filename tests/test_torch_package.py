@@ -95,14 +95,14 @@ def test_torch_features_g4_refusal_names_what_is_missing():
     [("loop_closure", True), ("loop_closure_sim3", True), ("speed_prior_band", (0.5, 2.0)),
      ("ground_height_m", 1.5)],
 )
-def test_torch_vo_refuses_unported_options(field, value):
+def test_torch_vo_engines_take_the_loop_closure_options(field, value):
+    """The options that came with loop closure: both engines take them
+    (their parity with the JAX package: tests/test_torch_loopclosure.py)."""
     from cvsteer_tpu_torch.slam.vo_device import DeviceVO
 
     cfg = VOConfig()._replace(**{field: value})
-    with pytest.raises(NotImplementedError, match="later PR"):
-        init_vo(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later PR"):
-        DeviceVO(cfg, device="cpu")
+    assert getattr(init_vo(cfg, device="cpu").config, field) == value
+    assert getattr(DeviceVO(cfg, device="cpu").state.config, field) == value
 
 
 @pytest.mark.parametrize("field,value", [("motion_model", True), ("kf_min_flow_px", 20.0)])
