@@ -43,6 +43,31 @@ Phases (any failure exits non-zero and prints no result line):
              the features / track / keyframe / capture spans, the device ms
              of one replay of T (track) and of P (promote), and the same
              profiled window as phase 5 for this engine.
+5c. serving — eight streams at the default VOConfig: (a) kernels B, C, D
+             bit for bit against their plain versions on an [8, 480, 640]
+             stack of eight PlanesSequence seeds' first frames
+             (frontend_agreement); (b) the eight sequences (seeds 0-7, 40
+             frames, fx = fy = 500) written as TUM directories (PNG frames,
+             rgb.txt, groundtruth.txt) by spawned processes, then
+             cvsteer_tpu_torch.cli_vo.main on all eight with --engine device
+             (the classic DeviceVOFleet) and with --engine device --pipeline;
+             each stream's camera centers within 0.03 m of a single-stream
+             DeviceVO's on the same frames until that DeviceVO's first
+             promotion after initialization (past it the window BA carries
+             the batch's float32 rounding much further: the whole
+             trajectories' distance is printed), its ATE under its
+             ate_bound wherever that DeviceVO's is, B, C, D once per tick;
+             then the batch axis alone: seed 0's stream through a 1-stream
+             fleet equal to a DeviceVO's bit for bit, and eight copies of it
+             through an 8-stream fleet giving eight equal rows; (c) the
+             library paths timed on the same frames (one batched
+             extract_features and one step a tick): DeviceVOServer (its
+             engines are (b)'s single-stream DeviceVOs), the classic fleet,
+             the pipelined fleet (promote_cap 2) and VOServer (20 frames):
+             aggregate frames/s, per-stream ATE, peak allocator memory,
+             device kernels and busy share over 5 warm ticks; the fleets'
+             graphs FT and FP (device ms and events per replay), 2 captures
+             each and none by their engines.
 6. CLI     — cvsteer_tpu_torch.cli.main on a list of the 64 frames and one
              unreadable entry, with --filters g2 and then g4 (default
              --batch 16): 192 PNGs per run, each within 1 gray level of the
@@ -87,8 +112,8 @@ Phases (any failure exits non-zero and prints no result line):
              bit and M within its stated tolerance against their plain
              versions, at those shapes and ragged ones, timed as in phase 4.
 Phase 9 runs after phase 7 and before phase 8.
-Each path phase (5-9, 5b) sets the launch counts to 0 just before it and reads
-them just after. The line before the last is the per-kernel JSON record;
+Each path phase (5-9, 5b, each cli_vo run of 5c) sets the launch counts to 0
+just before it and reads them just after. The line before the last is the per-kernel JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -96,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import math
 import os
@@ -130,6 +156,7 @@ PATH_KERNELS = {  # phase -> the kernels its path must launch
                "probe_maps_variants", "probe_maps_mma"),
     "loop": ("pyr_down", "g2_features_full", "desc_sample"),
     "loop_host": ("pyr_down", "g2_features_full", "desc_sample"),
+    "serving": ("pyr_down", "g2_features_full", "desc_sample"),
 }
 VO_LAUNCHES_PER_FRAME = {  # the VO front-end: one B, one C and one D per frame
     "filter_bank": 0, "pyr_down": 1, "g2_features_full": 1, "desc_sample": 1,
@@ -153,6 +180,13 @@ LOOP_CITY = dict(n_frames=900, laps=1.2, side=40.0)
 LOOP_FRAMES = 900
 LOOP_HOST_FRAMES = 150
 LOOP_RENDER_WORKERS = 6
+# phase 5c: the reference's default fleet (n_streams 8) at the default
+# VOConfig on eight rendered sequences; the pipelined fleet with
+# FLEET_r05.json's S = 8 pipelined row's promote_cap
+SERVE_STREAMS, SERVE_FRAMES, SERVE_HOST_FRAMES = 8, 40, 20
+SERVE_PIPE_CAP = 2
+SERVE_PROFILE_FROM, SERVE_PROFILE_TICKS = 10, 5  # profiled ticks; later ones are timed
+SERVE_RENDER_WORKERS = 8
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "cvsteer_tpu_torch", "io", "golden")
 
@@ -807,6 +841,274 @@ def run_vo_device(n_frames: int, seed: int, host: dict) -> dict:
         replay=replay, keyframes=timer.count.get("keyframe", 0), first_promotion=first_promotion,
         max_pose_diff_before=float(max(same, default=math.inf)),
     )
+
+
+# --- phase 5c: serving -------------------------------------------------------
+
+
+def one_thread():
+    """A render worker's initializer: numpy's BLAS on one thread, so that
+    the workers do not oversubscribe the cores (set before numpy loads)."""
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
+
+
+def render_planes(job):
+    """The first ``n`` frames of PlanesSequence(seed=seed) at the default
+    camera (480x640, fx = fy = 500), rounded to 8 bits, as float32 [n, 480,
+    640]: what a PNG of each decodes to. A worker process's task."""
+    seed, n = job
+    import numpy as np
+
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+
+    seq = PlanesSequence(n_frames=SERVE_FRAMES, image_hw=(480, 640), seed=seed)
+    return np.stack([np.clip(np.rint(seq.render(k)), 0, 255) for k in range(n)]).astype(np.float32)
+
+
+def _write_serving_sequence(job):
+    """Render PlanesSequence(seed=seed) over SERVE_FRAMES frames and write
+    it under ``root`` in the TUM-RGBD layout: 8-bit PNG frames, rgb.txt,
+    groundtruth.txt (camera -> world). A worker process's task; returns the
+    frames as float32."""
+    seed, root = job
+    import numpy as np
+
+    from cvsteer_tpu_torch.cli_vo import _rot_to_quat
+    from cvsteer_tpu_torch.io.imageio import imwrite_u8
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+
+    frames = render_planes((seed, SERVE_FRAMES))
+    gR, gt = PlanesSequence(n_frames=SERVE_FRAMES, image_hw=(480, 640), seed=seed).gt_arrays()
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    rgb, truth = [], []
+    for k in range(SERVE_FRAMES):
+        name = f"rgb/{k:06d}.png"
+        imwrite_u8(os.path.join(root, name), frames[k].astype(np.uint8))
+        Rwc = gR[k].T.astype(np.float64)
+        c = -Rwc @ gt[k].astype(np.float64)
+        rgb.append(f"{0.1 * k:.6f} {name}\n")
+        pose = " ".join(f"{v:.9f}" for v in (*c, *_rot_to_quat(Rwc)))
+        truth.append(f"{0.1 * k:.6f} {pose}\n")
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.writelines(rgb)
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.writelines(truth)
+    return frames
+
+
+def _tum_poses(path):
+    """(R [F, 3, 3], t [F, 3]) world -> camera from a TUM trajectory file."""
+    import numpy as np
+
+    from cvsteer_tpu_torch.io.datasets import _quat_to_R
+
+    rows = np.loadtxt(path, ndmin=2)
+    Rwc = _quat_to_R(rows[:, 4:8])
+    R = np.swapaxes(Rwc, 1, 2)
+    return R.astype(np.float32), (-np.einsum("fij,fj->fi", R, rows[:, 1:4])).astype(np.float32)
+
+
+def _busy(prof, wall_s):
+    """(device events, copies / memsets, busy share) of a profiled window."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:  # the union of the device intervals
+            busy_us += b - max(a, end)
+            end = b
+    return len(dev) - len(copies), len(copies), busy_us / (wall_s * 1e6)
+
+
+def _serve(make, stacks, n_ticks, fcfg, profile=True, after=None) -> dict:
+    """A library serving run: ``make()`` builds the server; per tick the
+    streams' images go to the card as one [S, 480, 640] stack, one batched
+    extract_features, then ``step``. Ticks SERVE_PROFILE_FROM.. are
+    profiled (torch.profiler: device kernels per tick, busy share; without
+    ``profile`` they only warm up), the later ones timed (aggregate
+    frames/s). Returns the finalized states, the timings, the peak
+    allocator memory above the run's start, and ``after(server)``'s items;
+    the server goes when it returns."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from cvsteer_tpu_torch.cli_vo import _to_device
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+
+    S = stacks.shape[1]
+    gc.collect()  # the previous run's cyclic garbage holds card memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_start = time.perf_counter()
+    srv = make()
+    prof_end = SERVE_PROFILE_FROM + SERVE_PROFILE_TICKS
+
+    def tick(k):  # the cli's upload: pinned, no wait for the device
+        batch = extract_features(_to_device(stacks[k], torch.device("cuda")), cfg=fcfg)
+        srv.step([Features(*(x[i] for x in batch)) for i in range(S)])
+
+    for k in range(SERVE_PROFILE_FROM if profile else prof_end):
+        tick(k)
+    kernels_n, copies_n, busy = math.nan, math.nan, math.nan
+    if profile:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for k in range(SERVE_PROFILE_FROM, prof_end):
+                tick(k)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        kernels_n, copies_n, busy = _busy(prof, prof_s)
+    t0 = time.perf_counter()
+    for k in range(prof_end, n_ticks):
+        tick(k)
+    states = [srv.finalize(i) for i in range(S)]
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    return dict(
+        states=states, fps=S * (n_ticks - prof_end) / timed_s,
+        tick_ms=1e3 * timed_s / (n_ticks - prof_end), wall_s=time.perf_counter() - t_start,
+        kernels_per_tick=kernels_n / SERVE_PROFILE_TICKS,
+        copies_per_tick=copies_n / SERVE_PROFILE_TICKS, busy_share=busy,
+        peak_bytes=torch.cuda.max_memory_allocated() - base, **(after(srv) if after else {}),
+    )
+
+
+def run_serving(workdir: str) -> dict:
+    """Phase 5c: (a) B, C, D against their plain versions on an [8, 480,
+    640] stack of eight sequences' first frames; (b) the eight sequences
+    written as TUM directories and served through cli_vo.main with
+    --engine device, then --engine device --pipeline, each stream held to
+    a single-stream DeviceVO on the same frames (DeviceVOServer's engines);
+    (c) the library runs timed: DeviceVOServer, the classic and the
+    pipelined fleet, VOServer (SERVE_HOST_FRAMES frames), and one replay
+    of each fleet graph."""
+    import contextlib
+    import io as _io
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import cli_vo, kernels
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.evaluate import ate_rmse
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet, DeviceVOServer
+    from cvsteer_tpu_torch.slam.vo_server import VOServer
+    from cvsteer_tpu_torch.utils.profiling import device_ms
+
+    cfg = VOConfig()
+    S = SERVE_STREAMS
+    roots = [os.path.join(workdir, f"serve{s}") for s in range(S)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(SERVE_RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=one_thread) as pool:
+        frames = list(pool.map(_write_serving_sequence, zip(range(S), roots)))
+    stacks = np.ascontiguousarray(np.stack(frames, 1))  # [frames, S, 480, 640]
+    render_s = time.perf_counter() - t0
+    seqs = [PlanesSequence(n_frames=SERVE_FRAMES, image_hw=(480, 640), seed=s) for s in range(S)]
+    gts = [q.gt_arrays() for q in seqs]
+
+    # (a) B, C, D on the fleet's batch
+    fe = frontend_agreement(torch.from_numpy(stacks[0]).cuda(), cfg.frontend, g2_bank())
+    agree = {k: fe[k] for k in PATH_KERNELS["serving"]}
+    agree["p3_keep_agreement"] = fe["p3_keep_agreement"]
+
+    # (c) the library runs; DeviceVOServer's engines are the single-stream
+    # references of (b)
+    def fleet_graphs(flt):  # after the run: one replay of each graph, timed
+        out = dict(captures=flt.captures, engine_captures=[e.captures for e in flt.engines])
+        for g, half in (("FT", 0), ("FP", 1)):
+            ms, seen = device_ms(lambda h=half: flt._run_half(h))
+            out[g] = dict(device_ms=ms, events_per_replay=seen)
+        return out
+
+    res = {}
+    res["DeviceVOServer"] = _serve(lambda: DeviceVOServer(cfg, n_streams=S), stacks,
+                                   SERVE_FRAMES, cfg.frontend)
+    res["fleet classic"] = _serve(lambda: DeviceVOFleet(cfg, n_streams=S), stacks,
+                                  SERVE_FRAMES, cfg.frontend, after=fleet_graphs)
+    res["fleet pipelined"] = _serve(
+        lambda: DeviceVOFleet(cfg, n_streams=S, pipeline=True, promote_cap=SERVE_PIPE_CAP),
+        stacks, SERVE_FRAMES, cfg.frontend, after=fleet_graphs)
+    res["VOServer"] = _serve(lambda: VOServer(cfg, n_streams=S), stacks, SERVE_HOST_FRAMES,
+                             cfg.frontend, profile=False)
+    single = res["DeviceVOServer"]["states"]
+    for name, r in res.items():
+        n = len(r["states"][0].trajectory)
+        r["ate"] = [ate_rmse(*st.poses(), g[0][:n], g[1][:n]) for st, g in zip(r["states"], gts)]
+        r["whole"] = all([f for f, _, _ in st.trajectory] == list(range(n)) for st in r["states"])
+        r["finite"] = all(np.isfinite(st.poses()[1]).all() for st in r["states"])
+    graphs = {f"{name} {g}": res[name][g] for name in ("fleet classic", "fleet pipelined")
+              for g in ("FT", "FP")}
+
+    # (d) the batch axis alone: seed 0's stream through a DeviceVO, a
+    # 1-stream fleet and an 8-stream fleet of eight copies of it, fed the
+    # rows of the same batched extraction as the runs above
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    one, eight, vo = DeviceVOFleet(cfg, n_streams=1), DeviceVOFleet(cfg, n_streams=S), DeviceVO(cfg)
+    for k in range(SERVE_FRAMES):
+        b = extract_features(torch.from_numpy(stacks[k]).cuda(), cfg=cfg.frontend)
+        f0 = Features(*(x[0] for x in b))
+        vo.process_frame(f0)
+        one.step([f0])
+        eight.step([f0] * S)
+    ref0 = vo.finalize().poses()
+    rows = [eight.finalize(i).poses() for i in range(S)]
+    batching = dict(
+        one_equal=all(np.array_equal(a, b) for a, b in zip(one.finalize(0).poses(), ref0)),
+        rows_equal=all(np.array_equal(a, b) for r in rows for a, b in zip(r, rows[0])),
+        rows_apart=float(ate_rmse(*rows[0], *ref0)),
+    )
+
+    # (b) the CLI, counts from 0 around each run
+    gates = [ate_bound(q, st, cfg) for q, st in zip(seqs, single)]
+    # each single-stream run's first promotion after its initialization:
+    # the frames before it are tracked against the two-view map alone, no
+    # window BA has taken up the batch's rounding yet
+    first_promo = [st.keyframes[2].index if len(st.keyframes) > 2 else SERVE_FRAMES
+                   for st in single]
+    cli = {}
+    for name, flags in (("device", []), ("device --pipeline", ["--pipeline"])):
+        out = os.path.join(workdir, "serve_" + name.replace(" ", "_").replace("-", "") + ".txt")
+        buf = _io.StringIO()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_vo.main(["--input", ",".join(roots), "--engine", "device", *flags,
+                              "--output", out, "--verbose"])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t1
+        streams = []
+        for i, (q, g) in enumerate(zip(seqs, gts)):
+            R, t = _tum_poses(cli_vo._stream_output_path(out, i))
+            whole = len(t) == SERVE_FRAMES
+            Rs, ts = single[i].poses()
+            n0 = first_promo[i]
+            centers = lambda R_, t_: -np.einsum("fji,fj->fi", R_[:n0], t_[:n0])  # noqa: E731
+            streams.append(dict(
+                ate=ate_rmse(R, t, *g) if whole else float("nan"),
+                twin=ate_rmse(R, t, Rs, ts) if whole else float("nan"),
+                before=float(np.linalg.norm(centers(R, t) - centers(Rs, ts), axis=1).max())
+                if whole else float("nan"),
+                whole=whole, finite=bool(np.isfinite(t).all()),
+            ))
+        cli[name] = dict(rc=rc, launches=launches, streams=streams, wall_s=wall,
+                         stdout=buf.getvalue().strip().splitlines())
+    return dict(agree=agree, lib=res, graphs=graphs, cli=cli, gates=gates, render_s=render_s,
+                batching=batching, first_promo=first_promo)
 
 
 # --- phase 9: loop closure --------------------------------------------------
@@ -1586,8 +1888,8 @@ def main(argv=None) -> int:
         return _fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    device_name = torch.cuda.get_device_name(0)
+    print(f"device: {device_name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1693,6 +1995,86 @@ def main(argv=None) -> int:
         checks["VO device profile: device time seen"] = dprof["busy_share"] > 0
         launches["vo_device"] = dres["launches"]
 
+        # 5c. serving
+        t0 = time.perf_counter()
+        mem0 = torch.cuda.memory_allocated()
+        srv = run_serving(workdir)
+        ag = srv["agree"]
+        print(f"{card} | serving: B, C, D against their plain versions on the [8, 480, 640] stack: "
+              + json.dumps({k: {"max_abs_err": ag[k][0], "bit_equal": ag[k][1]}
+                            for k in PATH_KERNELS["serving"]})
+              + f"; p3 keep agreement {ag['p3_keep_agreement']}")
+        checks["serving: B, C, D bit-equal to plain at [8, 480, 640]"] = (
+            all(ag[k][1] for k in PATH_KERNELS["serving"]) and ag["p3_keep_agreement"] == 1.0)
+        window = f"{SERVE_PROFILE_FROM}-{SERVE_PROFILE_FROM + SERVE_PROFILE_TICKS - 1}"
+        for path, r in srv["lib"].items():
+            n = len(r["states"][0].trajectory)
+            if math.isnan(r["busy_share"]):  # the host engine: not profiled, to save ~50 s
+                prof = f"ticks {window} not profiled"
+            else:
+                prof = (f"ticks {window} profiled: {r['kernels_per_tick']:.1f} device kernels, "
+                        f"{r['copies_per_tick']:.1f} copies/memsets per tick, device busy "
+                        f"{100 * r['busy_share']:.2f} %")
+                checks[f"serving {path}: device time seen"] = r["busy_share"] > 0
+            print(f"{card} | serving {path}, {SERVE_STREAMS} streams x {n} frames 480x640: "
+                  f"{r['fps']:.2f} frames/s aggregate over ticks "
+                  f"{SERVE_PROFILE_FROM + SERVE_PROFILE_TICKS}-{n - 1} ({r['tick_ms']:.2f} ms per "
+                  f"tick, decode excluded, H2D of the stack and features included); {prof}; peak "
+                  f"allocator memory above the run's start {r['peak_bytes'] / 2**20:.1f} MiB; run "
+                  f"{r['wall_s']:.1f} s; "
+                  f"ATE per stream {[round(a, 4) for a in r['ate']]}")
+            checks[f"serving {path}: one finite pose per frame"] = r["whole"] and r["finite"]
+        for path in ("fleet classic", "fleet pipelined"):
+            r = srv["lib"][path]
+            print(f"{card} | serving {path}: graphs captured {r['captures']}, its engines "
+                  f"{r['engine_captures']}")
+            checks[f"serving {path}: 2 graphs, its engines none"] = (
+                r["captures"] == 2 and not any(r["engine_captures"]))
+        for g, r in srv["graphs"].items():
+            how = ("torch.profiler" if r["events_per_replay"]
+                   else "CUDA events around the replay: the profiler saw no kernel in it")
+            print(f"{card} | serving {g} (S = {SERVE_STREAMS}): {r['device_ms']:.4f} ms device per "
+                  f"replay, {r['events_per_replay']:.0f} device events per replay ({how})")
+        print(f"{card} | serving: single-stream DeviceVO (DeviceVOServer's engines) ATE "
+              f"{[round(a, 4) for a in srv['lib']['DeviceVOServer']['ate']]}, bounds "
+              f"{[round(g['bound'], 4) for g in srv['gates']]}")
+        single_ate = srv["lib"]["DeviceVOServer"]["ate"]
+        for path, r in srv["cli"].items():
+            for line in r["stdout"]:
+                print(f"{card} | serving cli_vo --engine {path}: {line}")
+            st = r["streams"]
+            print(f"{card} | serving cli_vo --engine {path}: rc {r['rc']}, {r['wall_s']:.1f} s "
+                  f"wall with decode; per stream ATE {[round(x['ate'], 4) for x in st]}; camera "
+                  f"centers apart from the single-stream DeviceVO's before its first promotion "
+                  f"after initialization (frames {srv['first_promo']}) at most "
+                  f"{[round(x['before'], 6) for x in st]} m (bar {VO_TWIN_GAP}); whole "
+                  f"trajectories apart (Sim(3)-aligned) {[round(x['twin'], 6) for x in st]} m; "
+                  f"launches {r['launches']}")
+            checks[f"serving cli {path}: rc 0, one finite pose per frame per stream"] = (
+                r["rc"] == 0 and all(x["whole"] and x["finite"] for x in st))
+            checks[f"serving cli {path}: each stream at its single-stream DeviceVO until the "
+                   f"first promotion after initialization"] = all(
+                x["before"] < VO_TWIN_GAP for x in st)
+            checks[f"serving cli {path}: ATE within bound where the single stream's is"] = all(
+                x["ate"] < g["bound"] for x, g, a in zip(st, srv["gates"], single_ate)
+                if a < g["bound"])
+            checks[f"serving cli {path}: B-D once per tick"] = all(
+                r["launches"][k] == SERVE_FRAMES for k in PATH_KERNELS["serving"])
+        bt = srv["batching"]
+        print(f"{card} | serving: seed 0's stream through a 1-stream fleet equals a DeviceVO's "
+              f"bit for bit: {bt['one_equal']}; eight copies of it through an 8-stream fleet: "
+              f"rows equal bit for bit: {bt['rows_equal']}, {bt['rows_apart']:.6f} m apart from "
+              f"the DeviceVO's (Sim(3)-aligned)")
+        checks["serving: a 1-stream fleet is DeviceVO bit for bit"] = bt["one_equal"]
+        checks["serving: eight copies of a stream give eight equal rows"] = bt["rows_equal"]
+        launches["serving"] = srv["cli"]["device"]["launches"]
+        print(f"{card} | phase 5c (serving) {time.perf_counter() - t0:.1f} s (frames rendered "
+              f"and written in {srv['render_s']:.1f} s, {SERVE_RENDER_WORKERS} processes)")
+        del srv
+        gc.collect()  # the serving runs' card memory goes before phase 9's peak
+        print(f"{card} | card memory allocated before phase 5c {mem0 / 2**20:.1f} MiB, after it "
+              f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+
         # 6. CLI
         runs, cli_checks = run_cli(frames512, paths, workdir)
         checks.update(cli_checks)
@@ -1792,10 +2174,11 @@ def main(argv=None) -> int:
             r["launches_vo_device"] = launches["vo_device"][r["name"]]
             r["launches_loop"] = launches["loop"][r["name"]]
             r["launches_loop_host"] = launches["loop_host"][r["name"]]
+            r["launches_serving"] = launches["serving"][r["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()},
     }))
     return 0
 

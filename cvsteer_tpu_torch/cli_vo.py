@@ -1,18 +1,29 @@
-"""cvsteer-vo on PyTorch: monocular visual odometry over an image sequence.
+"""cvsteer-vo on PyTorch: monocular visual odometry over image sequences.
 
-The port of cvsteer_tpu.cli_vo's single-stream path: run the
-steerable-front-end VO (keyframing + windowed Schur BA) over a TUM-RGBD
-sequence, a KITTI odometry sequence or a plain image directory; report ATE
-RMSE when ground truth is present; write the trajectory in TUM format.
-``--engine host`` (the default) runs slam.vo; ``--engine device`` runs
-slam.vo_device, the device-resident engine (two captured CUDA graphs per
-frame on a card, the same steps eagerly with ``--device cpu``).
+The port of cvsteer_tpu.cli_vo: run the steerable-front-end VO (keyframing
++ windowed Schur BA) over a TUM-RGBD sequence, a KITTI odometry sequence or
+a plain image directory; report ATE RMSE when ground truth is present;
+write the trajectory in TUM format. ``--engine host`` (the default) runs
+slam.vo; ``--engine device`` runs slam.vo_device, the device-resident
+engine (two captured CUDA graphs per frame on a card, the same steps
+eagerly with ``--device cpu``).
 
   python -m cvsteer_tpu_torch.cli_vo --input <seq_dir> --set slam.window=10 \
       --output traj.txt --engine device --device cuda
 
-Not ported yet (each raises): several comma-separated inputs (serving),
-``--checkpoint-dir``.
+Serving: a comma-separated ``--input`` runs every sequence at once. Each
+tick decodes the streams' images on a thread pool, extracts their features
+in one batched call per image shape, and steps the server once:
+slam.vo_server.VOServer with ``--engine host``, slam.vo_device.DeviceVOFleet
+(two CUDA graphs over the stacked maps of all streams) with ``--engine
+device``, pipelined one tick deep with ``--pipeline``. One trajectory file
+(``traj.<i>.txt`` for ``--output traj.txt``) and one ATE line per stream,
+then the aggregate frames/s.
+
+  python -m cvsteer_tpu_torch.cli_vo --input seqA,seqB,seqC --engine device \
+      --pipeline --output traj.txt
+
+Not ported yet (raises): ``--checkpoint-dir``.
 """
 
 from __future__ import annotations
@@ -33,6 +44,11 @@ def main(argv=None) -> int:
     ap.add_argument("--output", default="", help="trajectory output (TUM format)")
     ap.add_argument("--engine", choices=("host", "device"), default="host")
     ap.add_argument(
+        "--pipeline", action="store_true",
+        help="serving with --engine device: fetch one tick late (the pose "
+        "prediction on the device); host mirrors update a tick late",
+    )
+    ap.add_argument(
         "--device", default="cuda",
         help="torch device for the VO steps (default: cuda; cpu runs the "
         "kernels' plain versions and must be asked for)",
@@ -46,8 +62,6 @@ def main(argv=None) -> int:
     if not roots:
         print("no input sequences given", file=sys.stderr)
         return 1
-    if len(roots) > 1:
-        raise NotImplementedError("multi-input serving (slam/vo_server.py) is not ported yet")
     if args.checkpoint_dir:
         raise NotImplementedError("checkpointing (utils/checkpoint.py) is not ported yet")
 
@@ -73,6 +87,8 @@ def main(argv=None) -> int:
         cfg = apply_camera_preset(cfg, args.camera_preset)
     if args.set:
         cfg = apply_overrides(cfg, tuple(args.set))
+    if len(roots) > 1:
+        return _run_server(args, cfg, roots)
 
     seq = open_sequence(roots[0], max_frames=args.max_frames or None)
     if not seq.image_paths:
@@ -192,6 +208,108 @@ def _ate(state, seq):
     Rs, ts = state.poses()
     frames = [fi for fi, _, _ in state.trajectory]
     return ate_rmse(Rs, ts, seq.gt_R[frames], seq.gt_t[frames]), len(frames)
+
+
+def _stream_output_path(base: str, k: int) -> str:
+    import os
+
+    root, ext = os.path.splitext(base)
+    return f"{root}.{k}{ext or '.txt'}"
+
+
+def _run_server(args, cfg, roots) -> int:
+    """Serving: every sequence of ``roots`` stepped at once. Per tick: the
+    streams' images decoded on a thread pool, one batched extract_features
+    per distinct image shape (the batch padded to the group's running
+    size), then one ``step`` of the server. An unreadable frame advances
+    its own stream's frame counter, so trajectory rows stay aligned with
+    the ground truth."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+    from cvsteer_tpu_torch.io.datasets import open_sequence
+    from cvsteer_tpu_torch.io.imageio import imread_gray_f32
+
+    vo_cfg = vo_config(cfg)
+    seqs = [open_sequence(r, max_frames=args.max_frames or None) for r in roots]
+    for r, s in zip(roots, seqs):
+        if not s.image_paths:
+            print(f"no images found in {r}", file=sys.stderr)
+            return 1
+    n = len(seqs)
+    if args.engine == "device":
+        from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet
+
+        srv = DeviceVOFleet(vo_cfg, n_streams=n, pipeline=args.pipeline, device=args.device)
+    else:
+        from cvsteer_tpu_torch.slam.vo_server import VOServer
+
+        srv = VOServer(vo_cfg, n_streams=n, device=args.device)
+    dev = torch.device(args.device)
+    n_ticks = max(len(s.image_paths) for s in seqs)
+    frames_done = 0
+    group_pad = {}  # image shape -> the group's running batch size
+    with ThreadPoolExecutor(max_workers=min(8, n)) as pool:
+        t0 = time.perf_counter()
+        for k in range(n_ticks):
+            paths = [s.image_paths[k] if k < len(s.image_paths) else None for s in seqs]
+            imgs = list(pool.map(lambda p: imread_gray_f32(p) if p else None, paths))
+            frames = [None] * n
+            by_shape = {}
+            for i, im in enumerate(imgs):
+                if im is not None:
+                    by_shape.setdefault(im.shape, []).append(i)
+            for shape, idxs in by_shape.items():
+                gp = group_pad[shape] = max(group_pad.get(shape, 0), len(idxs))
+                stack = np.zeros((gp,) + shape, np.float32)
+                for slot, i in enumerate(idxs):
+                    stack[slot] = imgs[i]
+                batch = extract_features(_to_device(stack, dev), cfg=vo_cfg.frontend)
+                for slot, i in enumerate(idxs):
+                    frames[i] = Features(*(x[slot] for x in batch))
+                frames_done += len(idxs)
+            srv.step(frames)  # also with no frame: a pipelined server drains
+            for i, im in enumerate(imgs):
+                if paths[i] is not None and im is None:
+                    if args.verbose:
+                        print(f"skip unreadable: {paths[i]}", file=sys.stderr)
+                    srv.states[i].frame_count += 1
+        states = [srv.finalize(i) for i in range(n)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+
+    for i, (root, seq, st) in enumerate(zip(roots, seqs, states)):
+        if args.output:
+            _write_trajectory(_stream_output_path(args.output, i), st, seq)
+        ate, n_traj = _ate(st, seq)
+        tag = f"stream {i} ({root})"
+        if ate is not None:
+            print(f"{tag}: ATE RMSE {ate:.4f} m over {n_traj} frames")
+        elif args.verbose:
+            print(f"{tag}: {n_traj} frames (no ground truth)", file=sys.stderr)
+    print(
+        f"served {frames_done} frames over {n} streams in {dt:.1f}s "
+        f"({frames_done / max(dt, 1e-9):.2f} frames/s aggregate)",
+        file=sys.stdout if args.verbose else sys.stderr,
+    )
+    return 0
+
+
+def _to_device(a, dev):
+    """A numpy array on ``dev`` through pinned memory on a card: a copy from
+    pageable memory would make the host wait for the device's queued work
+    (the pipelined fleet's tick in flight)."""
+    import torch
+
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)
 
 
 def _rot_to_quat(R):

@@ -12,6 +12,8 @@ so the keypoints of all pyramid levels go through it together
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -27,12 +29,18 @@ def _grid_offsets(grid: int, spacing: float) -> np.ndarray:
     return np.stack([(ys - c) * spacing, (xs - c) * spacing], -1).reshape(-1, 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_offsets_on(grid: int, spacing: float, device: str) -> torch.Tensor:
+    """_grid_offsets as a float32 tensor on ``device``, made once: a copy
+    from host memory each call would make the host wait for the device
+    (read only; cached per grid, spacing and device)."""
+    return torch.as_tensor(_grid_offsets(grid, spacing), dtype=torch.float32, device=device)
+
+
 def _rotated_grid_coords(keypoints: Keypoints, grid: int, spacing: float):
     """(ys, xs [..., N, S], ct, st [..., N]): keypoint-oriented grid
     coordinates; broadcasts over any leading batch axes."""
-    offsets = torch.as_tensor(
-        _grid_offsets(grid, spacing), dtype=torch.float32, device=keypoints.yx.device
-    )
+    offsets = _grid_offsets_on(grid, float(spacing), str(keypoints.yx.device))
     theta = keypoints.theta
     ct, st = torch.cos(theta), torch.sin(theta)
     dy = offsets[:, 0] * ct[..., None] - offsets[:, 1] * st[..., None]

@@ -146,10 +146,8 @@ def _normal_equations(state: BAState, problem: BAProblem):
 def _block_diag_add(S: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """S [C, 6, C, 6] with ``blocks [C, 6, 6]`` added on its diagonal."""
     C = S.shape[0]
-    idx = torch.arange(C, device=S.device)
-    S = S.clone()
-    S[idx, :, idx, :] += blocks
-    return S
+    diag = torch.eye(C, dtype=torch.bool, device=S.device)[:, None, :, None]
+    return torch.where(diag, S + blocks[:, :, None, :], S)
 
 
 def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed):

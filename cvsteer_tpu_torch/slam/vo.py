@@ -515,16 +515,43 @@ def _predict_pose(state: VOState):
     return (R_rel @ R1).astype(np.float32), (R_rel @ t1 + t_rel).astype(np.float32)
 
 
-def _track(state: VOState, feats: Features):
-    """Match to the last keyframe's landmark-bearing features; PnP refine.
-    Returns host values (R, t, n_tracked, idx, valid, n_valid, x_new,
-    fvalid, flow, ground_h)."""
+class _Fetch:
+    """Device tensors on their way to the host: on a card each is copied
+    without blocking into a pinned buffer and an event marks the copies'
+    end; :meth:`get` waits for that event (a no-op once the stream was
+    synchronized) and returns numpy arrays. On the CPU the tensors are the
+    host values already."""
+
+    def __init__(self, tensors):
+        tensors = list(tensors)
+        self.event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self.host = [
+                torch.empty(a.shape, dtype=a.dtype, pin_memory=True).copy_(a, non_blocking=True)
+                for a in tensors
+            ]
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = tensors
+
+    def get(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [_host(a) for a in self.host]
+
+
+def _track_issue(state: VOState, feats: Features) -> _Fetch:
+    """Launch the tracking step (match to the last keyframe, PnP, rescue)
+    and start fetching its result; pair with :func:`_track_complete`. The
+    split lets a server launch many streams' steps before it waits once
+    (slam.vo_server)."""
     cfg = state.config
     kf = state.keyframes[-1]
     X_dev, sel_dev = _kf_track_cache(state, kf)
     Rp, tp = _predict_pose(state) if cfg.motion_model else (kf.R, kf.t)
     dual = cfg.motion_model and not (np.array_equal(Rp, kf.R) and np.array_equal(tp, kf.t))
-    out = _track_fused(
+    return _Fetch(_track_fused(
         kf.features.desc, kf.features.valid, X_dev, sel_dev, kf.features.yx,
         feats.yx, feats.desc, feats.valid, _dev(state, Rp), _dev(state, tp),
         _dev(state, kf.R), _dev(state, kf.t), cfg.intrinsics,
@@ -532,8 +559,16 @@ def _track(state: VOState, feats: Features):
         min_track=cfg.track_min_landmarks, dual_init=dual,
         rescue_radius=cfg.rescue_radius_norm, rescue_min_cos=cfg.rescue_min_cos,
         kf_min_flow=cfg.kf_min_flow_norm, ground_prior=cfg.ground_height_m > 0,
-    )
-    R, t, n, idx, n_valid, uv_all, valid_b, flow, ground_h = (_host(a) for a in out)
+    ))
+
+
+def _track_complete(state: VOState, fetched: _Fetch):
+    """Host tail of the tracking step: waits for the fetch and returns host
+    values (R, t, n_tracked, idx, valid, n_valid, x_new, fvalid, flow,
+    ground_h); x_new/fvalid are the frame's normalized pixels and feature
+    validity, which a promotion consumes without another fetch."""
+    kf = state.keyframes[-1]
+    R, t, n, idx, n_valid, uv_all, valid_b, flow, ground_h = fetched.get()
     n_tracked = int(n)
     if not (np.isfinite(R).all() and np.isfinite(t).all()):
         R, t, n_tracked = kf.R.copy(), kf.t.copy(), 0
@@ -541,6 +576,13 @@ def _track(state: VOState, feats: Features):
         R, t, n_tracked, idx, idx >= 0, int(n_valid),
         uv_all.astype(np.float32), valid_b, float(flow), float(ground_h),
     )
+
+
+def _track(state: VOState, feats: Features):
+    """Match to the last keyframe's landmark-bearing features; PnP refine.
+    Returns host values (R, t, n_tracked, idx, valid, n_valid, x_new,
+    fvalid, flow, ground_h)."""
+    return _track_complete(state, _track_issue(state, feats))
 
 
 def _track_against(state: VOState, feats: Features, kf: Keyframe):
@@ -619,9 +661,22 @@ def _add_keyframe(
     landmarks, run windowed BA (one device step + one fetch), register the
     accepted candidates, write back, and cull landmarks the optimizer could
     not reconcile."""
-    cfg = state.config
     if x_new is None:
         x_new = _norm_pts(state, feats)
+    _kf_fused_complete(
+        state, *_kf_fused_issue(state, feats, R, t, idx, valid, ref_kf, x_new, fvalid)
+    )
+
+
+def _kf_fused_issue(state: VOState, feats: Features, R, t, idx, valid, ref_kf, x_new, fvalid=None):
+    """Host assembly and launch of the keyframe step, its fetch started:
+    (fetch, ctx). ``fetch`` is None when neither BA nor triangulation has
+    enough support; :func:`_kf_fused_complete` then appends the keyframe
+    with inherited ids only. The grid: cameras padded to ``cfg.window``
+    (the new frame is the last real camera), landmark columns = [the
+    window's landmarks | F candidate slots], F the feature capacity; the
+    triangulation gate masks the candidates on the device."""
+    cfg = state.config
     kf_prev, lm_ids, fresh = _kf_inherit(state, feats, idx, valid, ref_kf)
     skip_tri = fresh.sum() < 8 or state.num_landmarks >= cfg.max_landmarks
     fresh_eff = fresh & (not skip_tri)
@@ -633,8 +688,7 @@ def _add_keyframe(
     id_arrays.append(lm_ids[lm_ids >= 0])
     lm_set = np.unique(np.concatenate(id_arrays))
     if lm_set.size < 8 and skip_tri:
-        _kf_append(state, feats, R, t, lm_ids, x_new, fvalid)
-        return
+        return None, (feats, R, t, lm_ids, x_new, fvalid)
     if lm_set.size > MAX_BA_LANDMARKS:
         # keep the most-observed landmarks (ties: lowest id)
         counts = np.zeros(lm_set.size, np.int64)
@@ -690,25 +744,43 @@ def _add_keyframe(
 
     d = lambda a: _dev(state, a)  # noqa: E731
     if skip_tri:
-        out = _ba_only(
+        fetch = _Fetch(_ba_only(
             d(R_pad), d(t_pad), d(X_pad), d(uv[:, :L]), d(mask_old), d(fixed),
             iterations=cfg.ba_iterations, huber_delta=cfg.huber_delta,
-        )
-        Rs, ts, X, mean_err = (_host(a) for a in out)
-        ok, Xc = np.zeros(0, bool), None
+        ))
     else:
         P1 = np.concatenate([kf_prev.R, kf_prev.t[:, None]], 1).astype(np.float32)
         P2 = np.concatenate(
             [np.asarray(R, np.float32), np.asarray(t, np.float32)[:, None]], 1
         )
-        out = _kf_fused(
+        fetch = _Fetch(_kf_fused(
             d(R_pad), d(t_pad), d(X_pad), d(uv), d(mask_old), d(pot), d(fixed),
             d(P1), d(P2), d(x_prev_all), d(x_new_all), d(fresh_eff),
             cfg.max_landmarks - state.num_landmarks,
             iterations=cfg.ba_iterations, huber_delta=cfg.huber_delta,
             tri_angle=cfg.tri_min_ray_angle_deg,
-        )
-        Rs, ts, X, mean_err, ok, Xc = (_host(a) for a in out)
+        ))
+    ctx = (feats, R, t, lm_ids, x_new, fvalid, window, lm_set, L, kf_prev, idx, skip_tri)
+    return fetch, ctx
+
+
+def _kf_fused_complete(state: VOState, fetch: Optional[_Fetch], ctx) -> None:
+    """Host tail of the keyframe step: register the fetched candidates,
+    append the keyframe, write back the BA results and cull landmarks the
+    optimizer could not reconcile. When the window carried < 8 landmarks
+    the BA is under-constrained: candidates register from the raw
+    triangulation and poses and old landmarks stay."""
+    cfg = state.config
+    feats, R, t, lm_ids, x_new, fvalid = ctx[:6]
+    if fetch is None:
+        _kf_append(state, feats, R, t, lm_ids, x_new, fvalid)
+        return
+    window, lm_set, L, kf_prev, idx, skip_tri = ctx[6:]
+    if skip_tri:
+        Rs, ts, X, mean_err = fetch.get()
+        ok, Xc = np.zeros(0, bool), None
+    else:
+        Rs, ts, X, mean_err, ok, Xc = fetch.get()
     ba_valid = lm_set.size >= 8
 
     # register accepted candidates (ids in slot order == device cumsum rank)

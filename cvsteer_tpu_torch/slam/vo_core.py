@@ -2,8 +2,8 @@
 PnP, projective rescue, the triangulation gate, the median matched flow,
 the per-landmark reprojection signal and the culling bar, the ground-plane
 height observation and its controller, and the keyframe signature and
-closure-candidate rule, with the reference's constants. The fleet's
-constant-velocity prediction waits for the serving port.
+closure-candidate rule, and the fleet's constant-velocity prediction,
+with the reference's constants.
 
 Every rule here also runs inside the device engine's captured CUDA graphs
 (slam.vo_device), so none reads a tensor on the host, indexes with a 0-dim
@@ -92,7 +92,7 @@ def guided_rescue(
     ``min_sim``. Rescues never displace ratio matches or claimed frame
     features. Returns the merged match index [A]."""
     B = desc_b.shape[0]
-    claimed = torch.zeros(B + 1, dtype=torch.bool, device=idx.device).index_put_(
+    claimed = torch.zeros(B + 1, dtype=torch.bool, device=idx.device).index_put(
         (torch.where(idx >= 0, idx, B),), torch.ones_like(idx, dtype=torch.bool)
     )[:B]
     p = X_slots @ R.T + t
@@ -206,3 +206,25 @@ def closure_candidates(sigs, sig_new, j, *, min_gap, top):
     s = torch.where(rows <= j - min_gap, s, -torch.inf)
     score, idx = torch.topk(s, top)
     return idx, score
+
+
+def predict_const_velocity(R1, t1, R0, t0, traj_n, kfR, kft):
+    """Constant-velocity pose extrapolation with the plausibility guards:
+    the last inter-frame motion (R0, t0) -> (R1, t1) applied once more;
+    the keyframe pose (kfR, kft) when fewer than two trajectory entries
+    exist (``traj_n < 2``), one is not finite, or the implied per-frame
+    motion exceeds MAX_PRED_ROT_DEG / MAX_PRED_SHIFT. The tensor twin of
+    slam.vo._predict_pose, for one stream (the fleet vmaps it)."""
+    R_rel = R1 @ R0.T
+    t_rel = t1 - R_rel @ t0
+    cos = torch.clamp(0.5 * (torch.trace(R_rel) - 1.0), -1.0, 1.0)
+    fin = (
+        torch.isfinite(R1).all() & torch.isfinite(t1).all()
+        & torch.isfinite(R0).all() & torch.isfinite(t0).all()
+    )
+    ok = (
+        (traj_n >= 2) & fin
+        & (torch.rad2deg(torch.arccos(cos)) <= MAX_PRED_ROT_DEG)
+        & (torch.linalg.vector_norm(t_rel) <= MAX_PRED_SHIFT)
+    )
+    return torch.where(ok, R_rel @ R1, kfR), torch.where(ok, R_rel @ t1 + t_rel, kft)

@@ -1,5 +1,7 @@
 """Device-resident monocular VO: the whole map on the device, each frame two
-captured CUDA graphs (twin of cvsteer_tpu.slam.vo_device, one stream).
+captured CUDA graphs (twin of cvsteer_tpu.slam.vo_device), and its serving
+fleets: DeviceVOServer (one DeviceVO per stream) and DeviceVOFleet (every
+stream's map stacked, two graphs for all streams a tick).
 
 The host engine (slam.vo) keeps the map in host numpy and runs each frame
 as thousands of eager launches and several fetches. Here the whole mutable
@@ -45,15 +47,24 @@ tracking loss, a speed-prior clamp and a loop-closure event sync the
 device state down, run the host engine's logic (slam.vo, slam.loopclosure
 on this engine's device) and write the result back into the same buffers.
 
-Waiting for the serving port (ROADMAP.md): the fleets' host ground path
-(the reference's ``_ground_prior`` / ``_ground_rescale_jit``), chunked
-stepping and closure deferral inside a chunk (``_defer_closure``,
-``_pending_closure``).
-"""
+The fleet stacks S maps into one ``[S, ...]`` DeviceMap of static buffers
+and runs the same phases over the stream axis (``torch.func.vmap``), as
+two graphs captured once: **FT**, every stream's T and signature phases,
+and **FP**, the promotion of the streams that ask for one (all S masked,
+or compacted to ``promote_cap`` streams). Its engines capture nothing;
+they run the event paths above on their own buffers, into which the
+fleet copies a stream's row and from which it copies it back. A fleet row
+has no in-step ground controller: it takes the host ground path
+(:meth:`DeviceVO._ground_prior`), as in the reference.
 
+Not ported yet (ROADMAP.md): chunked stepping (the reference's
+``_device_step_n_body``, ``issue_chunk``, ``complete_chunk``) and closure
+deferral inside a chunk (``_defer_closure``, ``_pending_closure``).
+"""
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 import warnings
 from typing import NamedTuple, Optional
@@ -150,7 +161,7 @@ def _free_slots(lm_valid):
     free = ~lm_valid
     rank = torch.cumsum(free, 0, dtype=torch.int32) - 1
     slots = torch.full((Lmax + 1,), Lmax, dtype=torch.int32, device=lm_valid.device)
-    slots = slots.index_put_(
+    slots = slots.index_put(
         (torch.where(free, rank, Lmax).long(),),
         torch.arange(Lmax, dtype=torch.int32, device=lm_valid.device),
     )[:Lmax]
@@ -164,7 +175,7 @@ def _last_wins(tgt, n_cols):
     repeat (CUDA's index_put_ leaves that winner undefined)."""
     pos = torch.arange(tgt.shape[-1], device=tgt.device).expand(tgt.shape).contiguous()
     win = torch.full((*tgt.shape[:-1], n_cols + 1), -1, dtype=torch.int64, device=tgt.device)
-    return win.scatter_reduce_(-1, tgt, pos, "amax")[..., :n_cols]
+    return win.scatter_reduce(-1, tgt, pos, "amax")[..., :n_cols]
 
 
 def _window_ba(m: DeviceMap, *, iterations, huber_delta) -> DeviceMap:
@@ -193,7 +204,7 @@ def _window_ba(m: DeviceMap, *, iterations, huber_delta) -> DeviceMap:
 
     # compacted column -> slot id (Lmax sentinel for dead columns)
     comp = torch.full((L_cap + 1,), Lmax, dtype=torch.int32, device=dev)
-    comp = comp.index_put_((torch.where(uniq, rank, L_cap).long(),), sorted_slots)[:L_cap]
+    comp = comp.index_put((torch.where(uniq, rank, L_cap).long(),), sorted_slots)[:L_cap]
     col_ok = comp < Lmax
 
     # per-observation compacted column: first-occurrence rank of its slot
@@ -232,7 +243,7 @@ def _window_ba(m: DeviceMap, *, iterations, huber_delta) -> DeviceMap:
     nobs = mask.to(mean_err.dtype).sum(0)
     bad = ba_ok & col_ok & (nobs > 0) & (mean_err > vo_core.cull_bar(huber_delta))
     culled = torch.zeros(Lmax + 1, dtype=torch.bool, device=dev)
-    culled = culled.index_put_((torch.where(bad, comp, Lmax).long(),), bad)[:Lmax]
+    culled = culled.index_put((torch.where(bad, comp, Lmax).long(),), bad)[:Lmax]
 
     lm_valid = m.lm_valid & ~culled
     lm_gen = m.lm_gen + culled.to(m.lm_gen.dtype)
@@ -275,7 +286,7 @@ def _promote(m: DeviceMap, uv_new, desc, fvalid, idx, obs_pre, R, t, sig_new=Non
     # capacity pressure: when the free slots cannot take the gated
     # candidates, evict landmarks no window keyframe observes
     obs_ok_w = m.kf_live[:, None] & m.kf_fvalid & (m.kf_obs >= 0)
-    window_live = torch.zeros(Lmax + 1, dtype=torch.bool, device=dev).index_put_(
+    window_live = torch.zeros(Lmax + 1, dtype=torch.bool, device=dev).index_put(
         (torch.where(obs_ok_w, m.kf_obs, Lmax).reshape(-1).long(),),
         torch.ones(W * N, dtype=torch.bool, device=dev),
     )[:Lmax]
@@ -354,7 +365,7 @@ def _inherit(N, use, feat, ids):
     ``use[i]``, else -1 (``feat`` is a match, so its used entries are
     distinct)."""
     out = torch.full((N + 1,), -1, dtype=torch.int32, device=ids.device)
-    return out.index_put_(
+    return out.index_put(
         (torch.where(use, feat, N).long(),), torch.where(use, ids, -1).to(torch.int32)
     )[:N]
 
@@ -452,11 +463,20 @@ def _ground_step(m: DeviceMap, ground_h, *, target):
     by its ratio, a gauge-exact similarity. Returns (map, ratio)."""
     hist, r = vo_core.ground_controller(ground_h, ground_h > 0, m.ground_hist, target=target)
     c0 = -m.kf_R[-1].T @ m.kf_t[-1]
+    return _ground_rescale(m, r, c0)._replace(ground_hist=hist), r
+
+
+def _ground_rescale(m: DeviceMap, r, c0) -> DeviceMap:
+    """A gauge-exact similarity about the point ``c0``: the live landmarks
+    and the live ring keyframes' camera centers scale by ``r`` (rotations
+    unchanged), so every reprojection residual is invariant and the window
+    BA cannot revert it (slam.vo.apply_ground_prior is the host twin).
+    Padding ring rows and free landmark slots stay."""
     X = torch.where(m.lm_valid[:, None], c0 + (m.X - c0) * r, m.X)
     C = -torch.einsum("wij,wi->wj", m.kf_R, m.kf_t)
     Cs = c0 + (C - c0) * r
     kf_t = torch.where(m.kf_live[:, None], -torch.einsum("wij,wj->wi", m.kf_R, Cs), m.kf_t)
-    return m._replace(X=X, kf_t=kf_t, ground_hist=hist), r
+    return m._replace(X=X, kf_t=kf_t)
 
 
 class _IO(NamedTuple):
@@ -538,6 +558,86 @@ def _promote_half(m: DeviceMap, io: _IO, *, iterations, huber_delta, tri_angle,
     ]))
 
 
+def _track_row(h) -> StepOut:
+    """A fetched T row (``_IO.t_out``'s layout) as a StepOut."""
+    M = (h.shape[0] - 17) // 2
+    return StepOut(
+        R=h[:9].view(np.float32).reshape(3, 3).copy(), t=h[9:12].view(np.float32).copy(),
+        n_tracked=int(h[12]), n_valid=int(h[13]), promoted=bool(h[14]), lost=bool(h[15]),
+        ground_h=float(h[16:17].view(np.float32)[0]),
+        cand_idx=h[17:17 + M].copy() if M else None,
+        cand_score=h[17 + M:].view(np.float32).copy() if M else None,
+    )
+
+
+def _promote_row(out: StepOut, h, W: int, N: int) -> StepOut:
+    """``out`` with a fetched P row's ring poses, new observation row, its
+    stamps and the landmark count (``_IO.p_out``'s and ``_FleetIO.p_out``'s
+    common head)."""
+    return out._replace(
+        kf_R=h[: 9 * W].view(np.float32).reshape(W, 3, 3).copy(),
+        kf_t=h[9 * W: 12 * W].view(np.float32).reshape(W, 3).copy(),
+        obs_new=h[12 * W: 12 * W + N].copy(), obs_gen=h[12 * W + N: 12 * W + 2 * N].copy(),
+        lm_count=int(h[12 * W + 2 * N]),
+    )
+
+
+def _step_kwargs(cfg: VOConfig):
+    """The static keyword arguments of the two halves: (T's, P's)."""
+    track = dict(
+        kf_max_gap=cfg.kf_max_gap, K=cfg.intrinsics, ratio=cfg.match_ratio,
+        track_iters=10, huber_delta=cfg.huber_delta, min_track=cfg.track_min_landmarks,
+        # with the motion model both PnP starts always run: where the
+        # prediction is the keyframe pose they are equal, so the pick is
+        # the single refinement's
+        dual_init=cfg.motion_model, local_map=cfg.track_local_map,
+        rescue_radius=cfg.rescue_radius_norm, rescue_min_cos=cfg.rescue_min_cos,
+        kf_min_flow=cfg.kf_min_flow_norm, ground_prior=cfg.ground_height_m > 0,
+        loop_min_gap=cfg.loop_min_gap, loop_cands=cfg.loop_max_candidates,
+    )
+    promote = dict(
+        iterations=cfg.ba_iterations, huber_delta=cfg.huber_delta,
+        tri_angle=cfg.tri_min_ray_angle_deg, ground_target=float(cfg.ground_height_m),
+    )
+    return track, promote
+
+
+@functools.lru_cache(maxsize=None)
+def _warm_stream(device) -> "torch.cuda.Stream":
+    """The one side stream of every warm-up on ``device``: cuBLAS keeps a
+    workspace (32 MiB on Hopper) for each stream it has run on, so a new
+    stream per engine would leave one behind per engine."""
+    return torch.cuda.Stream(device)
+
+
+def _capture_graphs(device, warm, halves) -> tuple:
+    """Run ``warm()`` twice on a side stream (library handles and
+    workspaces; it must advance no real state), then capture each of
+    ``halves`` (callables on the static buffers) as one CUDA graph, in
+    order. A capture that fails raises."""
+    main = torch.cuda.current_stream(device)
+    side = _warm_stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side), _capture_math():
+        for _ in range(2):
+            warm()
+    main.wait_stream(side)
+    graphs = []
+    for half in halves:
+        g = torch.cuda.CUDAGraph()
+        with _capture_math(), torch.cuda.graph(g):
+            half()
+        graphs.append(g)
+    return tuple(graphs)
+
+
+def _step_math(device):
+    """The math mode of an eager half: the captured graphs' on a card (so
+    that an eager run takes the same factorization routines), TF32 off
+    elsewhere."""
+    return _capture_math() if device.type == "cuda" else precise()
+
+
 @contextlib.contextmanager
 def _capture_math():
     """TF32 off (a graph keeps the math mode it was captured under) and
@@ -564,10 +664,14 @@ class DeviceVO:
     keyframe.
 
     ``device="cuda"`` (the default) needs a CUDA device and raises without
-    one; ``device="cpu"`` runs the same two halves eagerly.
+    one; ``device="cpu"`` runs the same two halves eagerly. ``capture=False``
+    is for an engine a :class:`DeviceVOFleet` owns: the fleet steps its map
+    in the fleet's own graphs, and the engine runs only its event paths
+    (bootstrap, relocalization, closure, the speed clamp, the ground
+    prior), eagerly on its own buffers, so it captures nothing.
     """
 
-    def __init__(self, config: VOConfig = VOConfig(), device="cuda"):
+    def __init__(self, config: VOConfig = VOConfig(), device="cuda", capture: bool = True):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -576,6 +680,7 @@ class DeviceVO:
         self.device = device
         self.state: VOState = init_vo(config, device=device)
         self.map: Optional[DeviceMap] = None  # None while the host bootstraps
+        self.capture = capture
         self.captures = 0  # CUDA graphs captured (2 after the first upload)
         self._bufs: Optional[DeviceMap] = None  # the map's static buffers
         self._io: Optional[_IO] = None
@@ -593,25 +698,6 @@ class DeviceVO:
     # ------------------------------------------------------------------
     # the step
 
-    def _step_kwargs(self):
-        cfg = self.state.config
-        track = dict(
-            kf_max_gap=cfg.kf_max_gap, K=cfg.intrinsics, ratio=cfg.match_ratio,
-            track_iters=10, huber_delta=cfg.huber_delta, min_track=cfg.track_min_landmarks,
-            # with the motion model both PnP starts always run: where the
-            # prediction is the keyframe pose they are equal, so the pick is
-            # the single refinement's
-            dual_init=cfg.motion_model, local_map=cfg.track_local_map,
-            rescue_radius=cfg.rescue_radius_norm, rescue_min_cos=cfg.rescue_min_cos,
-            kf_min_flow=cfg.kf_min_flow_norm, ground_prior=cfg.ground_height_m > 0,
-            loop_min_gap=cfg.loop_min_gap, loop_cands=cfg.loop_max_candidates,
-        )
-        promote = dict(
-            iterations=cfg.ba_iterations, huber_delta=cfg.huber_delta,
-            tri_angle=cfg.tri_min_ray_angle_deg, ground_target=float(cfg.ground_height_m),
-        )
-        return track, promote
-
     def _run_half(self, k: int, *, eager: bool = False) -> None:
         """Run half ``k`` (0 = T, 1 = P) on the static buffers: its graph's
         replay, or eagerly where there is no graph (or when asked)."""
@@ -619,14 +705,14 @@ class DeviceVO:
             self._graphs[k].replay()
             return
         half = (_track_half, _promote_half)[k]
-        with precise():
-            half(self.map, self._io, **self._step_kwargs()[k])
+        with _step_math(self.device):
+            half(self.map, self._io, **_step_kwargs(self.state.config)[k])
 
     def _capture(self) -> None:
         """Capture T and P once, after a warm-up (library handles and
         workspaces) on a clone of the map and buffers, so the warm-up
         advances no real state. A capture that fails raises."""
-        track, promote = self._step_kwargs()
+        track, promote = _step_kwargs(self.state.config)
         m_w = DeviceMap(*(None if a is None else a.clone() for a in self.map))
         io_w = _IO(*(a.clone() for a in self._io))
         feats = self.state.keyframes[-1].features
@@ -634,30 +720,28 @@ class DeviceVO:
         io_w.desc.copy_(feats.desc)
         io_w.fvalid.copy_(feats.valid)
         io_w.pose.copy_(torch.cat([m_w.kf_R[-1].reshape(9), m_w.kf_t[-1]]))
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with hostvo._span(self.state, "capture"):
-            with torch.cuda.stream(side), _capture_math():
-                for _ in range(2):
-                    _track_half(m_w, io_w, **track)
-                    _promote_half(m_w, io_w, **promote)
-            main.wait_stream(side)
-            graphs = []
-            for half, kw in ((_track_half, track), (_promote_half, promote)):
-                g = torch.cuda.CUDAGraph()
-                with _capture_math(), torch.cuda.graph(g):
-                    half(self.map, self._io, **kw)
-                graphs.append(g)
-                self.captures += 1
-        self._graphs = tuple(graphs)
 
-    def _fetch(self, src: torch.Tensor, host: torch.Tensor) -> np.ndarray:
-        """One device-to-host copy of ``src`` into ``host`` (pinned on a
-        card), waited for."""
+        def warm():
+            _track_half(m_w, io_w, **track)
+            _promote_half(m_w, io_w, **promote)
+
+        with hostvo._span(self.state, "capture"):
+            self._graphs = _capture_graphs(self.device, warm, (
+                lambda: _track_half(self.map, self._io, **track),
+                lambda: _promote_half(self.map, self._io, **promote),
+            ))
+        self.captures += len(self._graphs)
+
+    def _start_fetch(self, src: torch.Tensor, host: torch.Tensor) -> None:
+        """Start one device-to-host copy of ``src`` into ``host`` (pinned on
+        a card); :meth:`_wait_fetch` waits for it."""
         host.copy_(src, non_blocking=True)
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            self._fetched.record()
+
+    def _wait_fetch(self, host: torch.Tensor) -> np.ndarray:
+        if self.device.type == "cuda":
+            self._fetched.synchronize()
         return host.numpy()
 
     # ------------------------------------------------------------------
@@ -690,6 +774,7 @@ class DeviceVO:
             t_out=z(n_t, i32), p_out=z(n_p, i32),
         )
         pin = self.device.type == "cuda"
+        self._fetched = torch.cuda.Event() if pin else None
         self._t_host = torch.zeros(n_t, dtype=i32, pin_memory=pin)
         self._p_host = torch.zeros(n_p, dtype=i32, pin_memory=pin)
         self._pose_host = torch.zeros(12, dtype=f32, pin_memory=pin)
@@ -761,7 +846,7 @@ class DeviceVO:
         m.kf_desc.copy_(kf_last.features.desc)  # a copy: the keyframe keeps its own
         self.map = m
         self._host_dirty = False
-        if self.device.type == "cuda" and self._graphs is None:
+        if self.device.type == "cuda" and self.capture and self._graphs is None:
             self._capture()
 
     def sync_host(self) -> VOState:
@@ -826,48 +911,55 @@ class DeviceVO:
     def issue(self, feats: Features) -> StepOut:
         """Run the step on ``feats`` and fetch it: T's replay and one fetch;
         on a promotion P's replay and one more. (The reference's issue only
-        dispatches; here the host reads T's flag to decide on P.) Requires
+        launches; here the host reads T's flag to decide on P.) Requires
         an initialized engine (``self.map is not None``)."""
         st = self.state
-        cfg = st.config
-        kf = st.keyframes[-1]
-        Rp, tp = hostvo._predict_pose(st) if cfg.motion_model else (kf.R, kf.t)
-        io = self._io
         with hostvo._span(st, "track"):
-            io.yx.copy_(feats.yx)
-            io.desc.copy_(feats.desc)
-            io.fvalid.copy_(feats.valid)
-            pose = self._pose_host.numpy()
-            pose[:9], pose[9:] = np.reshape(Rp, 9), tp
-            io.pose.copy_(self._pose_host, non_blocking=True)
-            self._run_half(0)
-            h = self._fetch(io.t_out, self._t_host)
-            M = (h.shape[0] - 17) // 2
-            out = StepOut(
-                R=h[:9].view(np.float32).reshape(3, 3).copy(), t=h[9:12].view(np.float32).copy(),
-                n_tracked=int(h[12]), n_valid=int(h[13]), promoted=bool(h[14]), lost=bool(h[15]),
-                ground_h=float(h[16:17].view(np.float32)[0]),
-                cand_idx=h[17:17 + M].copy() if M else None,
-                cand_score=h[17 + M:].view(np.float32).copy() if M else None,
-            )
-        self._host_dirty = True
+            self.dispatch_track(feats)
+            out = self.fetch_track()
         if not out.promoted:
             return out
-        W = cfg.window
-        N = io.idx.shape[0]
         with hostvo._span(st, "keyframe"):
-            self._run_half(1)
-            h = self._fetch(io.p_out, self._p_host)
-            return out._replace(
-                kf_R=h[: 9 * W].view(np.float32).reshape(W, 3, 3).copy(),
-                kf_t=h[9 * W: 12 * W].view(np.float32).reshape(W, 3).copy(),
-                obs_new=h[12 * W: 12 * W + N].copy(),
-                obs_gen=h[12 * W + N: 12 * W + 2 * N].copy(),
-                lm_count=int(h[-3]),
-                ground_r=(
-                    float(h[-1:].view(np.float32)[0]) if cfg.ground_height_m > 0 else None
-                ),
-            )
+            self.dispatch_promote()
+            return self.fetch_promote(out)
+
+    def dispatch_track(self, feats: Features) -> None:
+        """T's half of :meth:`issue` without the wait: write ``feats`` and
+        the PnP prediction into the input buffers, replay T and start
+        fetching its output; :meth:`fetch_track` waits for it. A server
+        launches every stream's T before one wait (DeviceVOServer)."""
+        st = self.state
+        kf = st.keyframes[-1]
+        Rp, tp = hostvo._predict_pose(st) if st.config.motion_model else (kf.R, kf.t)
+        io = self._io
+        io.yx.copy_(feats.yx)
+        io.desc.copy_(feats.desc)
+        io.fvalid.copy_(feats.valid)
+        pose = self._pose_host.numpy()
+        pose[:9], pose[9:] = np.reshape(Rp, 9), tp
+        io.pose.copy_(self._pose_host, non_blocking=True)
+        self._run_half(0)
+        self._start_fetch(io.t_out, self._t_host)
+        self._host_dirty = True
+
+    def fetch_track(self) -> StepOut:
+        """T's fetched output (waits for :meth:`dispatch_track`'s copy)."""
+        return _track_row(self._wait_fetch(self._t_host))
+
+    def dispatch_promote(self) -> None:
+        """P's replay on T's outputs and the start of its fetch."""
+        self._run_half(1)
+        self._start_fetch(self._io.p_out, self._p_host)
+
+    def fetch_promote(self, out: StepOut) -> StepOut:
+        """``out`` with P's fetched results (waits for the copy)."""
+        cfg = self.state.config
+        W = cfg.window
+        N = self._io.idx.shape[0]
+        h = self._wait_fetch(self._p_host)
+        return _promote_row(out, h, W, N)._replace(
+            ground_r=float(h[-1:].view(np.float32)[0]) if cfg.ground_height_m > 0 else None,
+        )
 
     def complete(self, feats: Features, fetched: StepOut) -> None:
         """Host-mirror tail of the step from a fetched result."""
@@ -917,6 +1009,8 @@ class DeviceVO:
                 if abs(fetched.ground_r - 1.0) > 1e-9:
                     st.track_version += 1
                     hostvo._diag(st, ev="ground", h=fetched.ground_h, r=fetched.ground_r)
+            elif cfg.ground_height_m > 0:  # a fleet row: the host event path
+                self._ground_prior(fetched.ground_h)
             self._speed_prior()  # record only when the band is off
             if st.diag is not None and len(st.keyframes) >= 2:
                 kf, prev = st.keyframes[-1], st.keyframes[-2]
@@ -1006,6 +1100,38 @@ class DeviceVO:
             dst.copy_(torch.as_tensor(a))
         self._host_dirty = False
 
+    def _ground_prior(self, h_obs: float) -> None:
+        """The ground-plane scale hold of a fleet row (vo.apply_ground_prior):
+        record the observation and, outside the deadband, rescale the device
+        map about the newest camera center (_ground_rescale, in place) and
+        the ring keyframes' host poses the same way; no sync, no fetch. The
+        fleet hands the row over first when :func:`_ground_corrects` says a
+        correction applies."""
+        st = self.state
+        if h_obs <= 1e-9:
+            return
+        r = hostvo.ground_correction_ratio(st.config, hostvo.smoothed_ground(st, h_obs))
+        if r is None:
+            return
+        if self.map is None:
+            raise RuntimeError("a ground-prior correction needs the engine's device map")
+        kf = st.keyframes[-1]
+        c0 = -kf.R.T @ kf.t
+        m = self.map
+        with precise():
+            m2 = _ground_rescale(m, r, torch.as_tensor(c0, dtype=torch.float32).to(self.device))
+        m.X.copy_(m2.X)
+        m.kf_t.copy_(m2.kf_t)
+        # the ring keyframes' host poses only, as the device rescale does;
+        # older keyframes keep their poses (corrections rewrite no history)
+        for k in st.keyframes[-st.config.window:]:
+            c = c0 + ((-k.R.T @ k.t) - c0) * r
+            k.t = (-k.R @ c).astype(np.float32)
+        self._host_dirty = True  # the landmark mirror refreshes at the next sync
+        st.track_version += 1
+        st.trajectory[-1] = (st.frame_count, kf.R.copy(), kf.t.copy())
+        hostvo._diag(st, ev="ground", h=float(h_obs), r=r)
+
     def _speed_prior(self) -> None:
         """The kinematic clamp of the newest keyframe's baseline
         (vo.apply_speed_prior): the check runs on the host pose mirrors;
@@ -1066,3 +1192,789 @@ class DeviceVO:
         """Sync, then propagate the final keyframe refinements into the
         trajectory."""
         return hostvo.finalize(self.sync_host())
+
+
+def _wait(device) -> None:
+    """One wait for everything launched on ``device``'s current stream."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+class DeviceVOServer:
+    """Fleet of :class:`DeviceVO` engines, each with its own two graphs,
+    stepped with two waits per tick: every stream's T is replayed with its
+    fetch started, then one wait; P is replayed for the streams that
+    promote, then one more wait; then each stream's host tail runs.
+    Bootstrap and the rare events run per stream, exactly as in DeviceVO,
+    so a 1-stream server equals DeviceVO."""
+
+    def __init__(self, config: VOConfig = VOConfig(), n_streams: int = 8, device="cuda"):
+        self.engines = [DeviceVO(config, device=device) for _ in range(n_streams)]
+        self.device = self.engines[0].device if self.engines else torch.device(device)
+
+    @property
+    def states(self):
+        return [e.state for e in self.engines]
+
+    def sync_host(self, i: int) -> VOState:
+        return self.engines[i].sync_host()
+
+    def finalize(self, i: int) -> VOState:
+        return self.engines[i].finalize()
+
+    def step(self, frames) -> None:
+        """Advance every stream by one frame (``frames[i]`` may be None)."""
+        if len(frames) != len(self.engines):
+            raise ValueError(f"{len(frames)} frames for {len(self.engines)} streams")
+        pending = []
+        for i, (eng, feats) in enumerate(zip(self.engines, frames)):
+            if feats is None:
+                continue
+            if eng.map is None:
+                eng.process_frame(feats)  # bootstrap: the host path (rare)
+                continue
+            eng.dispatch_track(feats)
+            pending.append(i)
+        if not pending:
+            return
+        _wait(self.device)  # wait 1: every stream's T
+        outs = {i: self.engines[i].fetch_track() for i in pending}
+        promoted = [i for i in pending if outs[i].promoted]
+        for i in promoted:
+            self.engines[i].dispatch_promote()
+        if promoted:
+            _wait(self.device)  # wait 2: the promoters' P
+        for i in promoted:
+            outs[i] = self.engines[i].fetch_promote(outs[i])
+        for i in pending:
+            self.engines[i].complete(frames[i], outs[i])
+
+
+# ---------------------------------------------------------------------------
+# the stacked fleet: two graphs over [S, ...] stacked maps
+# ---------------------------------------------------------------------------
+
+
+class _FleetAux(NamedTuple):
+    """Per-stream control state of the pipelined fleet, on the device.
+
+    The classic tick reads host mirrors (the constant-velocity prediction,
+    the keyframe-gap flag) before every step, so tick k cannot start before
+    tick k-1's fetch is home. With this state on the device a tick depends
+    only on its own features, and the host fetches one tick late.
+
+    R1/t1    [S, 3, 3] / [S, 3]  pose at the last tracked frame.
+    R0/t0                        pose one frame before that.
+    traj_n   [S] int32           how many of those are real (0..2).
+    since_kf [S] int32           frames since the last keyframe (the host's
+                                 frame_count - kf.index).
+    block    [S] bool            the previous tick promoted or lost: no
+                                 promotion this tick, so a ring change never
+                                 outruns the host mirror, which processes
+                                 tick k-1 after tick k was launched.
+    """
+
+    R1: torch.Tensor
+    t1: torch.Tensor
+    R0: torch.Tensor
+    t0: torch.Tensor
+    traj_n: torch.Tensor
+    since_kf: torch.Tensor
+    block: torch.Tensor
+
+
+class _FleetIO(NamedTuple):
+    """The fleet graphs' static input and output buffers (S streams)."""
+
+    active: torch.Tensor  # [S] in: the streams stepped this tick
+    yx: torch.Tensor  # [S, N, 2] in: the tick's features
+    desc: torch.Tensor  # [S, N, D]
+    fvalid: torch.Tensor  # [S, N]
+    pose: torch.Tensor  # [S, 12] in (classic): the PnP predictions, R then t
+    force: torch.Tensor  # [S] in (classic): forced promotions
+    prio: torch.Tensor  # [] in: the fair-serve origin of promote_cap
+    uv_new: torch.Tensor  # [S, N, 2] FT -> FP
+    idx: torch.Tensor  # [S, N] int64
+    obs_pre: torch.Tensor  # [S, N] int32
+    R: torch.Tensor  # [S, 3, 3]
+    t: torch.Tensor  # [S, 3]
+    promote: torch.Tensor  # [S]
+    lost: torch.Tensor  # [S]
+    sig_new: torch.Tensor  # [S, D]
+    ground_h: torch.Tensor  # [S]
+    t_out: torch.Tensor  # [S, 17 + 2 M] int32: T's row layout per stream
+    # [S, 12 W + 2 N + 2] int32: kf_R, kf_t (bits), obs_new, obs_gen,
+    # lm_count, served
+    p_out: torch.Tensor
+    # pipelined: t_out, p_out, then the promoted-row payload: row_stream
+    # [PB], row_yx [PB, N, 2] (bits), row_desc [PB, N, D] (bits),
+    # row_valid [PB, N]; PB = promote_cap, or S uncapped. Empty (classic).
+    pipe_out: torch.Tensor
+
+
+def _bits_rows(a):
+    return a.reshape(a.shape[0], -1).view(torch.int32)
+
+
+def _carried(m: DeviceMap) -> tuple:
+    """The names of a map's carried (not None) fields."""
+    return tuple(f for f, a in zip(m._fields, m) if a is not None)
+
+
+def _stacked(fn, names):
+    """``fn(map, *args)`` vmapped over a leading stream axis of the map's
+    carried fields ``names`` and of ``args``; the map goes in and out of
+    the vmapped function as the tuple of those fields."""
+    def one(fields, *args):
+        return fn(DeviceMap(**dict(zip(names, fields))), *args)
+
+    return torch.func.vmap(one)
+
+
+def _fleet_promote(ms: DeviceMap, do_promote, io: _FleetIO, prio_offset, *, iterations,
+                   huber_delta, tri_angle, promote_cap):
+    """The batched promotion, optionally compacted to a sub-batch:
+    (carried fields of the promoted stack, served [S], comp).
+
+    Uncapped, the promotion runs over all S streams, each stream's result
+    kept where it promotes (``torch.where``), and ``comp [S]`` is each
+    promoting stream's id (-1 elsewhere). With ``promote_cap`` = PB < S the
+    first PB promoting streams in a rotated order, whose origin
+    ``prio_offset`` advances by PB each tick, are compacted by prefix sum
+    into a [PB] sub-batch, promoted there and put back (each served stream
+    takes its row of the sub-batch: no scatter, no colliding index);
+    ``comp [PB]`` is the sub-batch's stream ids (-1 pads). Streams beyond
+    the cap are deferred: their promotion conditions persist, and every
+    requesting stream is served within ceil(S / PB) ticks. ``served``, not
+    the raw flag, says whose promotion ran."""
+    S = do_promote.shape[0]
+    names = _carried(ms)
+    dev = do_promote.device
+    args = (io.uv_new, io.desc, io.fvalid, io.idx, io.obs_pre, io.R, io.t)
+    if ms.sig is not None:
+        args += (io.sig_new,)
+
+    def one(m, p, uv, d, fv, ix, ob, R, t, *sig):
+        m2 = _promote(m, uv, d, fv, ix, ob, R, t, sig[0] if sig else None,
+                      iterations=iterations, huber_delta=huber_delta, tri_angle=tri_angle)
+        return tuple(torch.where(p, getattr(m2, f), getattr(m, f)) for f in names)
+
+    fields = tuple(getattr(ms, f) for f in names)
+    ids = torch.arange(S, dtype=torch.int32, device=dev)
+    if not promote_cap or promote_cap >= S:
+        out = _stacked(one, names)(fields, do_promote, *args)
+        return out, do_promote, torch.where(do_promote, ids, -1)
+    PB = int(promote_cap)
+    order = torch.remainder(ids - prio_offset, S)
+    rank = (do_promote[None, :] & (order[None, :] < order[:, None])).sum(1, dtype=torch.int32)
+    served = do_promote & (rank < PB)
+    slots = torch.full((S + 1,), S, dtype=torch.int32, device=dev).index_put(
+        (torch.where(served, rank, S).long(),), ids
+    )
+    idx = slots[:PB]  # the r-th served stream; S on pads
+    gidx = idx.clamp_max(S - 1).long()
+    psub = served[gidx] & (idx < S)
+    sub = _stacked(one, names)(tuple(a[gidx] for a in fields), psub, *(a[gidx] for a in args))
+    pos = rank.clamp(0, PB - 1).long()
+    out = tuple(
+        torch.where(served.view((S,) + (1,) * (a.dim() - 1)), b[pos], a)
+        for a, b in zip(fields, sub)
+    )
+    return out, served, torch.where(idx < S, idx, -1)
+
+
+def _fleet_track_half(ms: DeviceMap, io: _FleetIO, aux: Optional[_FleetAux], *, kf_max_gap,
+                      loop_min_gap, loop_cands, **track) -> None:
+    """FT: the track phase (and the signature phase when the stacks carry
+    the store) of every stream over the stacked maps, in one batched pass.
+    Classic (``aux`` None): the PnP predictions and forced promotions come
+    from the host in ``io``; pipelined: from ``aux`` (the constant-velocity
+    prediction with the motion model, the keyframe pose otherwise, and the
+    gap counter). Reads ``ms``; writes FT's outputs into ``io``."""
+    S = io.active.shape[0]
+    if aux is None:
+        Rp, tp, force = io.pose[:, :9].reshape(S, 3, 3), io.pose[:, 9:], io.force
+    else:
+        kfR, kft = ms.kf_R[:, -1], ms.kf_t[:, -1]
+        if track["dual_init"]:  # the motion model
+            Rp, tp = torch.func.vmap(vo_core.predict_const_velocity)(
+                aux.R1, aux.t1, aux.R0, aux.t0, aux.traj_n, kfR, kft
+            )
+        else:
+            Rp, tp = kfR, kft
+        force = aux.since_kf >= kf_max_gap
+    names = _carried(ms)
+    fields = tuple(getattr(ms, f) for f in names)
+    tr = _TrackOut(*_stacked(lambda m, *a: tuple(_track_phase(m, *a, **track)), names)(
+        fields, io.yx, io.desc, io.fvalid, Rp, tp, force
+    ))
+    for dst, src in ((io.uv_new, tr.uv_new), (io.idx, tr.idx), (io.obs_pre, tr.obs_pre),
+                     (io.R, tr.R), (io.t, tr.t), (io.promote, tr.promote), (io.lost, tr.lost),
+                     (io.ground_h, tr.ground_h)):
+        dst.copy_(src)
+    flags = torch.stack([a.to(torch.int32) for a in (tr.n, tr.n_valid, tr.promote, tr.lost)], 1)
+    parts = [_bits_rows(tr.R), _bits_rows(tr.t), flags, _bits_rows(tr.ground_h)]
+    if ms.sig is not None:
+        sig_new, cand_idx, cand_score = _stacked(
+            lambda m, d, v: _sig_phase(m, d, v, loop_min_gap=loop_min_gap, loop_cands=loop_cands),
+            names,
+        )(fields, io.desc, io.fvalid)
+        io.sig_new.copy_(sig_new)
+        parts += [cand_idx.to(torch.int32), _bits_rows(cand_score)]
+    io.t_out.copy_(torch.cat(parts, 1))
+
+
+def _fleet_promote_half(ms: DeviceMap, io: _FleetIO, aux: Optional[_FleetAux], *, iterations,
+                        huber_delta, tri_angle, promote_cap, ground_target=0.0) -> None:
+    """FP: the batched (or capped) promotion of the streams whose FT asked
+    for one, written in place into the stacked buffers, and the fetch rows
+    into ``io.p_out``. Pipelined (``aux`` given): promotion is held off for
+    a stream whose previous tick promoted or lost (``aux.block``), then the
+    promoted rows' features, the control state's update and the tick's
+    whole fetch (``io.pipe_out``). As in the reference's fleet there is no
+    in-step ground controller (``ground_target`` unused): a fleet row takes
+    the host's ground path."""
+    S = io.active.shape[0]
+    do = io.promote & io.active
+    if aux is not None:
+        do = do & ~aux.block
+    out, served, comp = _fleet_promote(
+        ms, do, io, io.prio, iterations=iterations, huber_delta=huber_delta,
+        tri_angle=tri_angle, promote_cap=promote_cap,
+    )
+    for f, src in zip(_carried(ms), out):
+        getattr(ms, f).copy_(src)
+    obs_new = ms.kf_obs[:, -1]
+    io.p_out.copy_(torch.cat([
+        _bits_rows(ms.kf_R), _bits_rows(ms.kf_t), obs_new,
+        torch.gather(ms.lm_gen, 1, obs_new.clamp_min(0).long()),
+        ms.lm_valid.sum(1, dtype=torch.int32)[:, None], served.to(torch.int32)[:, None],
+    ], 1))
+    if aux is None:
+        return
+    # the promoted rows' features ride home with the tick's fetch
+    g = comp.clamp_min(0).long()
+    row_valid = io.fvalid[g] & (comp >= 0)[:, None]
+    # the control state: a tracked frame appends its pose, a promoted
+    # frame's entry is the BA-refined keyframe pose (the host trajectory's)
+    fin = torch.isfinite(io.R).flatten(1).all(1) & torch.isfinite(io.t).all(1)
+    upd = ~io.lost & fin & io.active
+    newR = torch.where(served[:, None, None], ms.kf_R[:, -1], io.R)
+    newt = torch.where(served[:, None], ms.kf_t[:, -1], io.t)
+    nxt = _FleetAux(
+        R1=torch.where(upd[:, None, None], newR, aux.R1),
+        t1=torch.where(upd[:, None], newt, aux.t1),
+        R0=torch.where(upd[:, None, None], aux.R1, aux.R0),
+        t0=torch.where(upd[:, None], aux.t1, aux.t0),
+        traj_n=torch.where(upd, torch.clamp_max(aux.traj_n + 1, 2), aux.traj_n),
+        since_kf=torch.where(io.active, torch.where(served, 1, aux.since_kf + 1), aux.since_kf),
+        block=torch.where(io.active, served | io.lost, aux.block),
+    )
+    for dst, src in zip(aux, nxt):
+        dst.copy_(src)
+    io.pipe_out.copy_(torch.cat([
+        io.t_out.reshape(-1), io.p_out.reshape(-1), comp.to(torch.int32),
+        io.yx[g].reshape(-1).view(torch.int32), io.desc[g].reshape(-1).view(torch.int32),
+        row_valid.reshape(-1).to(torch.int32),
+    ]))
+
+
+class _LazyFeatureRows:
+    """The frames of a :meth:`DeviceVOFleet.step_batched` tick: stream i's
+    Features row (a copy of the batch's row on its device) is made only
+    when the host mirror needs it, on a loss (a promotion's row comes with
+    the tick's fetch), a few streams a tick. score, theta and level are not in the serving
+    input and are zero (matching, signatures, relocalization and closure
+    verification read yx, desc and valid only)."""
+
+    def __init__(self, yx, desc, fvalid):
+        self.yx, self.desc, self.fvalid = yx, desc, fvalid
+
+    def materialize(self, idxs) -> dict:
+        """{i: Features} for the requested streams, each row copied out of
+        the batch on its device (no host round trip)."""
+        return {int(i): _row_features(self.yx[i].clone(), self.desc[i].clone(),
+                                      self.fvalid[i].clone()) for i in idxs}
+
+
+def _row_features(yx, desc, valid) -> Features:
+    z = torch.zeros(yx.shape[0], dtype=torch.float32, device=yx.device)
+    return Features(yx=yx, score=z, theta=z, level=z.to(torch.int32), desc=desc, valid=valid)
+
+
+def _stack_features(frames, tick, N, D, device):
+    """The tick's features as [S, N, 2], [S, N, D], [S, N] on ``device``,
+    zeros for the streams not stepped."""
+    zero = (torch.zeros((N, 2), device=device), torch.zeros((N, D), device=device),
+            torch.zeros(N, dtype=torch.bool, device=device))
+    rows = [(f.yx, f.desc, f.valid) if tick[i] else zero for i, f in enumerate(frames)]
+    return tuple(torch.stack([r[k].to(device) for r in rows]) for k in range(3))
+
+
+def _ground_corrects(state: VOState, h_obs: float) -> bool:
+    """Would DeviceVO._ground_prior(h_obs) rescale the map: is the
+    smoothed observation it would record outside the deadband?"""
+    if h_obs <= 1e-9 or state.config.ground_height_m <= 0:
+        return False
+    h_sm = float(np.median((state.ground_hist + [float(h_obs)])[-3:]))
+    return hostvo.ground_correction_ratio(state.config, h_sm) is not None
+
+
+class DeviceVOFleet:
+    """The stacked fleet: every stream's map in one ``[S, ...]`` stack, and
+    each tick two graphs over it for all streams at once (twin of the
+    reference's vmapped fleet).
+
+    - **FT** (every tick): the track and signature phases of every stream,
+      batched over the stream axis (``torch.func.vmap`` of DeviceVO's
+      phases).
+    - **FP**: the promotion of the streams that ask for one, batched over
+      all S streams (each stream's result kept where it promotes) or, with
+      ``promote_cap``, compacted to a sub-batch of that many streams.
+
+    The classic tick replays FT, fetches ``[S, 17 + 2 M]`` int32 in one
+    copy and replays FP only when some stepped stream promotes, then
+    fetches once more. The pipelined tick (``pipeline=True``) replays FT
+    and FP back to back with no host read between them: the predictions
+    and the keyframe gap live on the device (:class:`_FleetAux`), and the
+    tick's fetch is one asynchronous copy into a ring of
+    ``pipeline_depth + 1`` pinned host buffers, which the host reads one
+    tick (``step``) or ``pipeline_depth`` ticks (``step_batched``) later.
+    The stack and buffers are static: the graphs are captured once, when
+    the first stream enters (``captures`` 2, and its engines 0). On the
+    CPU the same halves run eagerly. All streams share one VOConfig.
+
+    Stream lifecycle: an engine bootstraps on the host; once initialized
+    its map is copied into row i of the stack (``active[i]``). Rare events
+    (loss, closure, the speed clamp, a ground correction) copy the row out
+    into the engine's own buffers, run the host path there and copy it
+    back.
+    """
+
+    def __init__(self, config: VOConfig = VOConfig(), n_streams: int = 8, mesh=None,
+                 mesh_axis: str = "data", pipeline: bool = False, promote_cap: int = 0,
+                 pipeline_depth: int = 1, device="cuda"):
+        """``pipeline``: fetch one tick late (see the class docstring); the
+        host mirrors, and loss and closure events, lag a tick, and on an
+        event the in-flight tick of that stream is dropped and counted as
+        a skipped frame. ``promote_cap``: promote at most this many streams
+        a tick (0: uncapped); the rest defer a tick. ``pipeline_depth``
+        (step_batched): ticks in flight before the host reads results.
+        ``mesh`` (the stream axis sharded over devices) is not ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                f"a fleet sharded over a mesh (axis {mesh_axis!r}) needs the multi-device "
+                "layer parallel/, which is not ported yet"
+            )
+        self.config = config
+        self.promote_cap = int(promote_cap)
+        # rotating fair-serve origin of the capped promotion
+        self._promote_rr = 0
+        # host phase wall profile: set to {} to record cumulative seconds
+        # per tick phase (assemble, dispatch, copy_async, process, ...)
+        self.host_profile = None
+        self.engines = [DeviceVO(config, device=device, capture=False) for _ in range(n_streams)]
+        self.device = self.engines[0].device if self.engines else torch.device(device)
+        self.stack: Optional[DeviceMap] = None
+        self.aux: Optional[_FleetAux] = None
+        self.active = np.zeros(n_streams, bool)
+        self._pipeline = bool(pipeline)
+        self.pipeline_depth = max(int(pipeline_depth), 1)
+        self.captures = 0
+        self._io: Optional[_FleetIO] = None
+        self._graphs = None
+        # in-flight ticks, oldest first: [frames, tick mask, ring slot,
+        # drop set, event]
+        self._queue = []
+        self._slot = 0
+
+    def _lap(self, phase: str, t0: float) -> float:
+        if self.host_profile is None:
+            return 0.0
+        now = time.perf_counter()
+        self.host_profile[phase] = self.host_profile.get(phase, 0.0) + now - t0
+        return now
+
+    def _advance_rr(self, S: int) -> int:
+        """The current fair-serve origin; advances by promote_cap a tick."""
+        o = self._promote_rr
+        if self.promote_cap:
+            self._promote_rr = (o + self.promote_cap) % max(S, 1)
+        return o
+
+    @property
+    def states(self):
+        return [e.state for e in self.engines]
+
+    # -- the stack and its buffers ------------------------------------------
+
+    def _kwargs(self):
+        track, promote = _step_kwargs(self.config)
+        return track, dict(promote, promote_cap=self.promote_cap)
+
+    def _ensure_stack(self, template: DeviceMap) -> None:
+        """Allocate the stack, the buffers and the host rings at the first
+        stream's entry, and capture FT and FP on a card."""
+        if self.stack is not None:
+            return
+        S, dev, cfg = len(self.engines), self.device, self.config
+        N, D = (int(n) for n in template.kf_desc.shape)
+        W = cfg.window
+        M = cfg.loop_max_candidates if cfg.loop_closure else 0
+        PB = self.promote_cap if 0 < self.promote_cap < S else S
+
+        def z(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.stack = DeviceMap(*(
+            None if a is None else z((S,) + tuple(a.shape), a.dtype) for a in template
+        ))
+        n_t, n_p = 17 + 2 * M, 12 * W + 2 * N + 2
+        n_pipe = S * (n_t + n_p) + PB * (1 + 3 * N + N * D) if self._pipeline else 0
+        i32, b = torch.int32, torch.bool
+        self._io = _FleetIO(
+            active=z(S, b), yx=z((S, N, 2)), desc=z((S, N, D)), fvalid=z((S, N), b),
+            pose=z((S, 12)), force=z(S, b), prio=z((), i32), uv_new=z((S, N, 2)),
+            idx=z((S, N), torch.int64), obs_pre=z((S, N), i32), R=z((S, 3, 3)), t=z((S, 3)),
+            promote=z(S, b), lost=z(S, b), sig_new=z((S, D)), ground_h=z(S),
+            t_out=z((S, n_t), i32), p_out=z((S, n_p), i32), pipe_out=z(n_pipe, i32),
+        )
+        if self._pipeline:
+            eye = torch.eye(3, device=dev).expand(S, 3, 3).contiguous()
+            self.aux = _FleetAux(R1=eye, t1=z((S, 3)), R0=eye.clone(), t0=z((S, 3)),
+                                 traj_n=z(S, i32), since_kf=z(S, i32), block=z(S, b))
+        pin = dev.type == "cuda"
+        self._t_host = torch.zeros((S, n_t), dtype=i32, pin_memory=pin)
+        self._p_host = torch.zeros((S, n_p), dtype=i32, pin_memory=pin)
+        self._pose_host = torch.zeros((S, 12), dtype=torch.float32, pin_memory=pin)
+        self._force_host = torch.zeros(S, dtype=b, pin_memory=pin)
+        ring = self.pipeline_depth + 1
+        self._active_host = [torch.zeros(S, dtype=b, pin_memory=pin) for _ in range(ring)]
+        self._ring = [torch.zeros(n_pipe, dtype=i32, pin_memory=pin) for _ in range(ring)]
+        self._sizes = dict(S=S, N=N, D=D, W=W, PB=PB, n_t=n_t, n_p=n_p)
+        if pin:
+            self._capture()
+
+    def _capture(self) -> None:
+        """Capture FT and FP once, after a warm-up on clones of the stack
+        and buffers."""
+        track, promote = self._kwargs()
+        clone = lambda t: None if t is None else type(t)(  # noqa: E731
+            *(None if a is None else a.clone() for a in t))
+        m_w, io_w, aux_w = clone(self.stack), clone(self._io), clone(self.aux)
+
+        def warm():
+            _fleet_track_half(m_w, io_w, aux_w, **track)
+            _fleet_promote_half(m_w, io_w, aux_w, **promote)
+
+        self._graphs = _capture_graphs(self.device, warm, (
+            lambda: _fleet_track_half(self.stack, self._io, self.aux, **track),
+            lambda: _fleet_promote_half(self.stack, self._io, self.aux, **promote),
+        ))
+        self.captures += len(self._graphs)
+
+    def _run_half(self, k: int, *, eager: bool = False) -> None:
+        """FT (k = 0) or FP (k = 1): its graph's replay, or eagerly where
+        there is no graph (or when asked)."""
+        if self._graphs is not None and not eager:
+            self._graphs[k].replay()
+            return
+        half = (_fleet_track_half, _fleet_promote_half)[k]
+        with _step_math(self.device):
+            half(self.stack, self._io, self.aux, **self._kwargs()[k])
+
+    def _aux_row(self, eng: DeviceVO) -> _FleetAux:
+        """A stream's control state at its entry, from its host mirror (the
+        reads the classic tick makes each tick)."""
+        st = eng.state
+        kf = st.keyframes[-1]
+        traj = st.trajectory
+        R1, t1 = (traj[-1][1], traj[-1][2]) if traj else (kf.R, kf.t)
+        R0, t0 = (traj[-2][1], traj[-2][2]) if len(traj) >= 2 else (R1, t1)
+        return _FleetAux(
+            R1=np.asarray(R1, np.float32), t1=np.asarray(t1, np.float32),
+            R0=np.asarray(R0, np.float32), t0=np.asarray(t0, np.float32),
+            traj_n=np.int32(min(len(traj), 2)), since_kf=np.int32(st.frame_count - kf.index),
+            block=np.bool_(False),
+        )
+
+    def _scatter_in(self, i: int) -> None:
+        """Copy engine i's map into row i of the stack (``copy_``: the
+        stack's buffers are never rebound) and make the stream active."""
+        eng = self.engines[i]
+        self._ensure_stack(eng.map)
+        for dst, src in zip(self.stack, eng.map):
+            if dst is not None:
+                dst[i].copy_(src)
+        if self._pipeline:
+            for dst, src in zip(self.aux, self._aux_row(eng)):
+                dst[i].copy_(torch.as_tensor(src))
+        eng.map = None  # fleet-managed from here on
+        self.active[i] = True
+
+    def _gather_out(self, i: int) -> None:
+        """Copy row i of the stack into engine i's own buffers, for the host
+        event paths that sync and upload."""
+        eng = self.engines[i]
+        for dst, src in zip(eng._bufs, self.stack):
+            if dst is not None:
+                dst.copy_(src[i])
+        eng.map = eng._bufs
+        eng._host_dirty = True
+        self.active[i] = False
+
+    def sync_host(self, i: int) -> VOState:
+        """Pull stream i's device state into its host mirror."""
+        self._flush()
+        if self.active[i]:
+            self._gather_out(i)
+            state = self.engines[i].sync_host()
+            self._scatter_in(i)
+            return state
+        return self.engines[i].sync_host()
+
+    def finalize(self, i: int) -> VOState:
+        """Stream i's finalized VOState."""
+        self.sync_host(i)
+        return hostvo.finalize(self.engines[i].state)
+
+    # -- the tick -----------------------------------------------------------
+
+    def step(self, frames) -> None:
+        """Advance every stream by one frame (``frames[i]`` may be None)."""
+        if len(frames) != len(self.engines):
+            raise ValueError(f"{len(frames)} frames for {len(self.engines)} streams")
+        if self._pipeline:
+            return self._step_pipelined(frames)
+        return self._step_classic(frames)
+
+    def _enter(self, frames) -> Optional[np.ndarray]:
+        """Bootstrap and (re)entry, the host path until an engine has a map;
+        a stream that initializes here consumed this tick's frame. Returns
+        the tick's mask of stepped streams, None when there is none."""
+        consumed = set()
+        for i, (eng, feats) in enumerate(zip(self.engines, frames)):
+            if self.active[i] or feats is None:
+                continue
+            if eng.map is not None:
+                # an adopted state waiting to enter: it has not consumed
+                # this tick's frame
+                self._scatter_in(i)
+                continue
+            eng.process_frame(feats)
+            consumed.add(i)
+            if eng.map is not None:
+                self._scatter_in(i)
+        if self.stack is None or not self.active.any():
+            return None
+        tick = self.active.copy()
+        for i, feats in enumerate(frames):
+            if feats is None or i in consumed:
+                tick[i] = False
+        return tick if tick.any() else None
+
+    def _put_features(self, yx, desc, fvalid, tick, slot: int) -> None:
+        io = self._io
+        io.yx.copy_(yx)
+        io.desc.copy_(desc)
+        io.fvalid.copy_(fvalid)
+        act = self._active_host[slot]
+        act.numpy()[:] = tick
+        io.active.copy_(act, non_blocking=True)
+        io.prio.fill_(self._advance_rr(len(self.engines)))
+
+    def _step_classic(self, frames) -> None:
+        tick = self._enter(frames)
+        if tick is None:
+            return
+        cfg = self.config
+        sz = self._sizes
+        pose, force = self._pose_host.numpy(), self._force_host.numpy()
+        for i in np.nonzero(tick)[0]:
+            st = self.engines[i].state
+            kf = st.keyframes[-1]
+            Rp, tp = hostvo._predict_pose(st) if cfg.motion_model else (kf.R, kf.t)
+            pose[i, :9], pose[i, 9:] = np.reshape(Rp, 9), tp
+            force[i] = (st.frame_count - kf.index) >= cfg.kf_max_gap
+        io = self._io
+        self._put_features(*_stack_features(frames, tick, sz["N"], sz["D"], self.device), tick, 0)
+        io.pose.copy_(self._pose_host, non_blocking=True)
+        io.force.copy_(self._force_host, non_blocking=True)
+        self._run_half(0)
+        self._t_host.copy_(io.t_out, non_blocking=True)
+        _wait(self.device)  # fetch 1: every stream's T row
+        t_rows = self._t_host.numpy().copy()
+        p_rows = None
+        if (t_rows[:, 14].astype(bool) & tick).any():
+            self._run_half(1)
+            self._p_host.copy_(io.p_out, non_blocking=True)
+            _wait(self.device)  # fetch 2: the promotions
+            p_rows = self._p_host.numpy().copy()
+        results = self._rows(t_rows, p_rows)
+        for i in np.nonzero(tick)[0]:
+            self._complete(i, frames[i], results[i])
+
+    def _rows(self, t_rows, p_rows):
+        """Each stream's StepOut from the fetched rows (``p_rows`` None: FP
+        did not run, no stream promoted)."""
+        sz = self._sizes
+        W, N = sz["W"], sz["N"]
+        out = []
+        for i in range(sz["S"]):
+            r = _track_row(t_rows[i])._replace(promoted=False)  # served, not asked, counts
+            if p_rows is not None and p_rows[i, -1]:
+                r = _promote_row(r, p_rows[i], W, N)._replace(promoted=True)
+            out.append(r)
+        return out
+
+    def _needs_map(self, eng: DeviceVO, res: StepOut) -> bool:
+        """Does this result take a host event path that needs the row's
+        device map (loss, closure, the speed clamp, a ground correction)?"""
+        cfg = self.config
+        lost = res.lost or not (np.isfinite(res.R).all() and np.isfinite(res.t).all())
+        return lost or (res.promoted and (
+            cfg.loop_closure or cfg.speed_prior_band[1] > 0
+            or _ground_corrects(eng.state, res.ground_h)
+        ))
+
+    def _complete(self, i: int, feats, res: StepOut) -> bool:
+        """Stream i's host tail; an event hands the row to the engine and
+        takes the result back. Returns whether the event path ran."""
+        eng = self.engines[i]
+        if self._needs_map(eng, res):
+            self._gather_out(i)
+            eng.complete(feats, res)
+            if eng.map is not None:
+                self._scatter_in(i)
+            # else: the engine fell back to bootstrap; it re-enters when ready
+            return True
+        eng._host_dirty = True
+        eng.complete(feats, res)
+        return False
+
+    # -- the pipelined tick -------------------------------------------------
+
+    def _step_pipelined(self, frames) -> None:
+        tick = self._enter(frames)
+        if tick is None:
+            self._flush()
+            return
+        t_phase = time.perf_counter() if self.host_profile is not None else 0
+        sz = self._sizes
+        feats = _stack_features(frames, tick, sz["N"], sz["D"], self.device)
+        self._launch(feats, tick, frames)
+        t_phase = self._lap("dispatch", t_phase)
+        while len(self._queue) > 1:
+            self._process(self._queue.pop(0))
+        self._lap("process", t_phase)
+
+    def _launch(self, feats, tick, frames) -> None:
+        """One pipelined tick: the features in, FT and FP back to back, the
+        fetch started into the ring's next slot, the tick queued."""
+        slot = self._slot
+        self._slot = (slot + 1) % len(self._ring)
+        self._put_features(*feats, tick, slot)
+        self._run_half(0)
+        self._run_half(1)
+        self._ring[slot].copy_(self._io.pipe_out, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._queue.append([frames, tick, slot, set(), event])
+
+    def _flush(self) -> None:
+        """Process every in-flight tick (pipelined; a no-op otherwise)."""
+        q, self._queue = self._queue, []
+        for pending in q:
+            self._process(pending)
+
+    def step_batched(self, yx, desc, fvalid) -> None:
+        """A pipelined tick from batched features (``yx [S, N, 2]``, ``desc
+        [S, N, D]``, ``fvalid [S, N]``), on the fleet's device: what the
+        batched front-end (features.extract_features over an [S, H, W]
+        image stack) returns, so the tick needs no stacking. The host
+        mirrors get feature rows only for streams that promote (in the
+        tick's fetch) or lose tracking (copied out of the batch). Keeps up
+        to ``pipeline_depth`` ticks in flight. Every stream must be active
+        (bootstrap through :meth:`step`)."""
+        if not self._pipeline:
+            raise ValueError("step_batched needs pipeline=True")
+        if self.stack is None or not self.active.all():
+            raise ValueError("step_batched needs every stream active; bootstrap through step()")
+        t_phase = time.perf_counter() if self.host_profile is not None else 0
+        tick = self.active.copy()
+        self._launch((yx, desc, fvalid), tick, _LazyFeatureRows(yx, desc, fvalid))
+        t_phase = self._lap("dispatch", t_phase)
+        while len(self._queue) > self.pipeline_depth:
+            self._process(self._queue.pop(0))
+        self._lap("process", t_phase)
+
+    def _process(self, pending) -> None:
+        """Apply a fetched tick to the host mirrors: the lagged twin of the
+        classic tick's loop. A stream in the tick's drop set was rewritten
+        by a host event after this tick was launched: its result is
+        superseded and its frame counts as skipped."""
+        frames, tick, slot, drop, event = pending
+        t_f = time.perf_counter() if self.host_profile is not None else 0
+        if event is not None:
+            event.synchronize()
+        t_f = self._lap("process.fetch", t_f)
+        sz = self._sizes
+        S, N, D, PB = sz["S"], sz["N"], sz["D"], sz["PB"]
+        ring = self._ring[slot]
+        h = ring.numpy()
+        o = S * sz["n_t"]
+        results = self._rows(h[:o].reshape(S, -1), h[o: o + S * sz["n_p"]].reshape(S, -1))
+        if isinstance(frames, _LazyFeatureRows):
+            # the promoted rows came with the fetch; losses (rare) are
+            # copied out of the batch; tracked-only streams need none
+            o += S * sz["n_p"]
+            row_stream = h[o: o + PB]
+            o += PB
+            rows = {}
+            for j, sid in enumerate(row_stream):
+                if sid < 0:
+                    continue
+                a = o + j * 2 * N
+                bd = o + PB * 2 * N + j * N * D
+                bv = o + PB * 2 * N + PB * N * D + j * N
+                rows[int(sid)] = _row_features(
+                    self._to_device(ring[a: a + 2 * N]).view(torch.float32).view(N, 2),
+                    self._to_device(ring[bd: bd + N * D]).view(torch.float32).view(N, D),
+                    self._to_device(ring[bv: bv + N]) != 0,
+                )
+            need = [i for i in range(S) if tick[i] and i not in drop and i not in rows
+                    and (results[i].promoted or results[i].lost
+                         or not np.isfinite(results[i].R).all()
+                         or not np.isfinite(results[i].t).all())]
+            rows.update(frames.materialize(need))
+            frames = [rows.get(i) for i in range(S)]
+        for i in range(S):
+            if not tick[i]:
+                continue
+            eng = self.engines[i]
+            if i in drop:
+                eng.state.frame_count += 1  # consumed; its result superseded
+                continue
+            res = results[i]
+            lost = res.lost or not (np.isfinite(res.R).all() and np.isfinite(res.t).all())
+            event_path = self._complete(i, frames[i], res)
+            # after a loss the in-flight ticks tracked from a stale map: drop
+            # their results (skipped frames); after a closure the in-flight
+            # tick is a plain track (the block latch forbids a ring change):
+            # keep it, one tick stale, unless the engine fell back to
+            # bootstrap
+            if event_path and (lost or not self.active[i]):
+                for pend in self._queue:
+                    if pend[1][i]:
+                        pend[3].add(i)
+        self._lap("process.python", t_f)
+
+    def _to_device(self, a: torch.Tensor) -> torch.Tensor:
+        """A slice of a pinned ring buffer on the fleet's device (a copy on
+        the CPU), without a wait: the copy is queued before the slot's next
+        fetch."""
+        if self.device.type == "cuda":
+            return a.to(self.device, non_blocking=True)
+        return a.clone()

@@ -2,7 +2,8 @@
 
 The system has no weights: its parameters are tap banks and configs, its
 per-frame state is a Features set, the VO engines carry a keyframed
-VOState (the device engine a DeviceMap beside it) from frame to frame, and
+VOState (the device engine a DeviceMap beside it, the fleet a stacked
+DeviceMap and, pipelined, a _FleetAux) from frame to frame, and
 loop closure optimizes Poses/PoseGraph and Sim3/Sim3Graph. These helpers take the reference
 package's values as plain Python/numpy objects (NamedTuples, numpy or
 array-like fields; anything with the same field names) and build the port's
@@ -97,14 +98,27 @@ _MAP_DTYPES = dict(
 
 def device_map(m, device="cuda") -> DeviceMap:
     """A reference DeviceMap (arrays of any array type; None fields stay
-    None) -> the port's, on ``device``. Descriptors become float32, the
-    port's descriptor type."""
+    None) -> the port's, on ``device``; a fleet's stack ``[S, ...]`` as
+    well. Descriptors become float32, the port's descriptor type."""
     return DeviceMap(**{
         f: None if getattr(m, f, None) is None else torch.as_tensor(
             np.array(getattr(m, f), dtype=np.float32 if _MAP_DTYPES[f].is_floating_point else None),
             dtype=_MAP_DTYPES[f], device=device,
         )
         for f in DeviceMap._fields
+    })
+
+
+def fleet_aux(a, device="cuda"):
+    """A reference fleet's _FleetAux (R1, t1, R0, t0 [S, ...] float32,
+    traj_n, since_kf [S] int32, block [S] bool) -> the port's."""
+    from cvsteer_tpu_torch.slam.vo_device import _FleetAux
+
+    dtypes = dict(traj_n=torch.int32, since_kf=torch.int32, block=torch.bool)
+    return _FleetAux(**{
+        f: torch.as_tensor(np.array(getattr(a, f)), dtype=dtypes.get(f, torch.float32),
+                           device=device)
+        for f in _FleetAux._fields
     })
 
 

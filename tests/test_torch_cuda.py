@@ -902,3 +902,236 @@ def test_torch_cuda_probe_wrappers_raise(cuda):
     with pytest.raises(ValueError):  # a patch larger than the image
         z = torch.zeros(2, dtype=torch.int32, device=cuda)
         cp.gather_patches(torch.zeros((8, 8), device=cuda), z, z, 16, 4)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the stacked fleet's two graphs (slam.vo_device.DeviceVOFleet)
+# ---------------------------------------------------------------------------
+
+FLEET_TICKS = 12  # every seed's stream is initialized and in the stack by then
+
+
+@pytest.fixture(scope="module")
+def serve_frames():
+    """[FLEET_TICKS + 4, 8, 480, 640]: eight PlanesSequence seeds' first
+    frames (chip_smoke.render_planes, in spawned processes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the fleet's steps are captured CUDA graphs")
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import chip_smoke
+
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=chip_smoke.one_thread) as pool:
+        frames = list(pool.map(chip_smoke.render_planes, [(s, FLEET_TICKS + 4) for s in range(8)]))
+    return np.ascontiguousarray(np.stack(frames, 1))
+
+
+def _fleet_tick(flt, stack):
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+
+    batch = extract_features(torch.from_numpy(stack).cuda())
+    flt.step([Features(*(x[i] for x in batch)) for i in range(stack.shape[0])])
+
+
+FLEETS = {"S2-classic": (2, {}), "S8-classic": (8, {}),
+          "S8-pipelined-cap2": (8, dict(pipeline=True, promote_cap=2))}
+
+
+@pytest.fixture(scope="module", params=list(FLEETS))
+def fleet(request, serve_frames):
+    """A fleet on the card, FLEET_TICKS ticks in (every stream active, the
+    graphs captured), with the next tick's features in its input buffers."""
+    from cvsteer_tpu_torch.features.frontend import extract_features
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet
+
+    S, kw = FLEETS[request.param]
+    flt = DeviceVOFleet(VOConfig(), n_streams=S, **kw)
+    for k in range(FLEET_TICKS):
+        _fleet_tick(flt, serve_frames[k, :S])
+    flt._flush()
+    assert flt.active.all() and flt.captures == 2
+    batch = extract_features(torch.from_numpy(serve_frames[FLEET_TICKS, :S]).cuda())
+    io = flt._io
+    io.yx.copy_(batch.yx)
+    io.desc.copy_(batch.desc)
+    io.fvalid.copy_(batch.valid)
+    io.active.fill_(True)
+    for i, eng in enumerate(flt.engines):  # the classic tick's host inputs
+        kf = eng.state.keyframes[-1]
+        io.pose[i].copy_(torch.from_numpy(np.concatenate([kf.R.reshape(9), kf.t])))
+    io.force[0] = True  # stream 0 promotes in FP (classic)
+    if flt.aux is not None:  # pipelined: the gap counter forces it
+        flt.aux.since_kf[0] = 100
+        flt.aux.block[0] = False
+    return flt
+
+
+def _fleet_state(flt):
+    return [a.clone() for t in (flt.stack, flt._io, flt.aux) if t is not None
+            for a in t if a is not None]
+
+
+def _fleet_run_from(flt, snap, half, eager):
+    dsts = [a for t in (flt.stack, flt._io, flt.aux) if t is not None for a in t if a is not None]
+    for dst, src in zip(dsts, snap):
+        dst.copy_(src)
+    flt._run_half(half, eager=eager)
+    torch.cuda.synchronize()
+    return _fleet_state(flt)
+
+
+@pytest.mark.parametrize("half", [0, 1], ids=["FT", "FP"])
+def test_torch_cuda_fleet_graphs_equal_eager_and_replay(fleet, half):
+    """Each fleet graph gives the same stack and outputs as its half run
+    eagerly on the same carried-in state, bit for bit, and two replays
+    agree; FP runs on FT's outputs, with at least one stream promoting."""
+    snap = _fleet_state(fleet)
+    if half == 1:
+        snap = _fleet_run_from(fleet, snap, 0, eager=False)
+        assert bool(fleet._io.promote.any())
+    eager = _fleet_run_from(fleet, snap, half, eager=True)
+    first = _fleet_run_from(fleet, snap, half, eager=False)
+    again = _fleet_run_from(fleet, snap, half, eager=False)
+    for n, (e, a, b) in enumerate(zip(eager, first, again)):
+        assert torch.equal(a, e), f"buffer {n}: the graph differs from the eager half"
+        assert torch.equal(a, b), f"buffer {n}: two replays differ"
+    _fleet_run_from(fleet, snap, half, eager=False)
+
+
+def test_torch_cuda_fleet_frontend_batch_bit_equal(serve_frames):
+    """B, C and D at the fleet's batch, [8, 480, 640], bit for bit against
+    their plain versions (chip_smoke.frontend_agreement)."""
+    import chip_smoke
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+
+    fe = chip_smoke.frontend_agreement(torch.from_numpy(serve_frames[0]).cuda(),
+                                       FrontendConfig(), g2_bank())
+    for k in ("pyr_down", "g2_features_full", "desc_sample"):
+        assert fe[k][1], (k, fe[k][0])
+    assert fe["p3_keep_agreement"] == 1.0
+
+
+def test_torch_cuda_fleet_captures_twice_and_keeps_buffers(serve_frames):
+    """The fleet captures its two graphs once and never again, its engines
+    none; a blackout of one stream takes the event path (the row copied out
+    into the engine's buffers, relocalized on the host, copied back): every
+    stack and engine buffer keeps its address."""
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet
+
+    flt = DeviceVOFleet(VOConfig(), n_streams=2)
+    for k in range(FLEET_TICKS):
+        _fleet_tick(flt, serve_frames[k, :2])
+    assert flt.captures == 2 and flt.active.all()
+    stack = [a.data_ptr() for a in flt.stack if a is not None]
+    bufs = [[a.data_ptr() for a in e._bufs if a is not None] for e in flt.engines]
+    for k in range(2):  # stream 0 sees blank frames: lost, the host path
+        frames = serve_frames[FLEET_TICKS + k, :2].copy()
+        frames[0] = 0.0
+        _fleet_tick(flt, frames)
+    for k in range(FLEET_TICKS + 2, serve_frames.shape[0]):
+        _fleet_tick(flt, serve_frames[k, :2])
+    states = [flt.finalize(i) for i in range(2)]
+    assert flt.captures == 2 and [e.captures for e in flt.engines] == [0, 0]
+    assert [a.data_ptr() for a in flt.stack if a is not None] == stack
+    assert [[a.data_ptr() for a in e._bufs if a is not None] for e in flt.engines] == bufs
+    for st in states:
+        assert st.frame_count == serve_frames.shape[0] and np.isfinite(st.poses()[1]).all()
+
+
+def test_torch_cuda_fleet_closure_keeps_buffers():
+    """A Sim(3) closure event of a fleet row (the drifted loop-world state
+    of test_torch_cuda_vo_closure_upload_keeps_buffers, adopted by both
+    engines of a 2-stream fleet): accepted through the fleet's event path,
+    the keyframe ATE halved, and no buffer rebound, no graph captured
+    again."""
+    import copy
+
+    import chip_smoke as cs
+    from cvsteer_tpu_torch.geometry.camera import Intrinsics
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO, DeviceVOFleet
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the fleet's steps are captured CUDA graphs")
+    X, desc = cs._loop_world()
+    rng = np.random.default_rng(11)
+    n_frames = 48
+    gt = [cs._circle_pose(k, n_frames - 1) for k in range(n_frames)]
+    frames = [cs._render_feats(X, desc, R, t, rng) for R, t in gt]
+    cfg = VOConfig(intrinsics=Intrinsics(*cs.LOOP_K), kf_max_gap=4, window=6,
+                   track_min_landmarks=40, min_parallax=0.01)
+    vo = DeviceVO(cfg, device="cuda")
+    for k in range(40):
+        vo.process_frame(frames[k])
+    st = vo.sync_host()
+    assert cs._inject_scale_drift(st, rate=0.07) > 1.8
+    before = cs._kf_ate(st, gt)
+    cfg2 = cfg._replace(loop_closure=True, loop_closure_sim3=True, loop_min_gap=6,
+                        loop_min_inliers=20)
+    st.config = cfg2
+    flt = DeviceVOFleet(cfg2, n_streams=2)
+    for eng in flt.engines:
+        eng.adopt(copy.deepcopy(st))
+    flt.step([frames[40], frames[40]])  # the adopted states enter the stack
+    stack = [a.data_ptr() for a in flt.stack if a is not None]
+    bufs = [[a.data_ptr() for a in e._bufs if a is not None] for e in flt.engines]
+    for k in range(41, n_frames):
+        flt.step([frames[k], frames[k]])
+    finals = [flt.finalize(i) for i in range(2)]
+    assert all(e.closures_accepted >= 1 for e in flt.engines)
+    assert all(cs._kf_ate(f, gt) < 0.5 * before for f in finals)
+    assert flt.captures == 2 and [e.captures for e in flt.engines] == [0, 0]
+    assert [a.data_ptr() for a in flt.stack if a is not None] == stack
+    assert [[a.data_ptr() for a in e._bufs if a is not None] for e in flt.engines] == bufs
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_torch_cuda_fleet_ring_hands_back_each_tick(serve_frames, depth):
+    """With ``depth`` ticks in flight, the pinned ring slot the host reads
+    for tick k holds tick k's fetch: each tick's output is also cloned on
+    the device right after FP (stream-ordered, no wait) and compared with
+    what the host read. Then the fleet tracks as the per-stream pipelined
+    step does: equal keyframes and poses."""
+    from cvsteer_tpu_torch.features.frontend import extract_features
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet
+
+    S, boot = 4, 6
+
+    def run(batched):
+        flt = DeviceVOFleet(VOConfig(), n_streams=S, pipeline=True, promote_cap=2,
+                            pipeline_depth=depth)
+        sent, seen = [], []
+        launch, process = flt._launch, flt._process
+
+        def spy_launch(*a):
+            launch(*a)
+            sent.append(flt._io.pipe_out.clone())
+
+        def spy_process(pending):
+            pending[4].synchronize()  # the tick's fetch has landed
+            seen.append(flt._ring[pending[2]].clone())
+            process(pending)
+
+        flt._launch, flt._process = spy_launch, spy_process
+        for k in range(serve_frames.shape[0]):
+            if batched and k >= boot and flt.active.all():
+                b = extract_features(torch.from_numpy(serve_frames[k, :S]).cuda())
+                flt.step_batched(b.yx, b.desc, b.valid)
+            else:
+                _fleet_tick(flt, serve_frames[k, :S])
+        states = [flt.finalize(i) for i in range(S)]
+        assert len(seen) == len(sent) > 0
+        for k, (a, b) in enumerate(zip(sent, seen)):
+            assert torch.equal(a.cpu(), b), f"tick {k}: the host read another tick's fetch"
+        return states
+
+    got, want = run(True), run(False)
+    for a, b in zip(got, want):
+        assert [kf.index for kf in a.keyframes] == [kf.index for kf in b.keyframes]
+        np.testing.assert_array_equal(a.poses()[1], b.poses()[1])

@@ -73,12 +73,12 @@ def test_torch_cli_vo_refuses_unported_modes(tmp_path):
     from cvsteer_tpu_torch.cli_vo import main
 
     for engine in ("host", "device"):
-        with pytest.raises(NotImplementedError):
-            main(["--input", f"{FIXTURE},{FIXTURE}", "--engine", engine])
-        with pytest.raises(NotImplementedError):
-            main(["--input", str(FIXTURE), "--checkpoint-dir", str(tmp_path), "--engine", engine])
+        for inputs in (str(FIXTURE), f"{FIXTURE},{FIXTURE}"):  # one stream, or serving
+            with pytest.raises(NotImplementedError, match="checkpoint"):
+                main(["--input", inputs, "--checkpoint-dir", str(tmp_path), "--engine", engine])
     if not torch.cuda.is_available():  # the card is the default: refuse without one
         assert main(["--input", str(FIXTURE), "--engine", "device"]) == 2
+        assert main(["--input", f"{FIXTURE},{FIXTURE}", "--engine", "device"]) == 2
 
 
 def test_torch_features_g4_refusal_names_what_is_missing():
