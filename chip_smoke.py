@@ -43,6 +43,14 @@ Phases (any failure exits non-zero and prints no result line):
              the features / track / keyframe / capture spans, the device ms
              of one replay of T (track) and of P (promote), and the same
              profiled window as phase 5 for this engine.
+    chunks — the same 40 frames through DeviceVO.issue_chunk /
+             complete_chunk, CHUNK (8) frames a chunk, each chunk's
+             features from one batched extract_features: keyframes and
+             poses against the sequential DeviceVO fed the same feature
+             rows (1e-5 m; bit for bit expected), 3 graphs (T, P and the
+             chunk graph C), one fetch per chunk, B, C, D once per batched
+             front-end call (one a chunk); frames/s and C's device ms per
+             replay beside T's and P's.
 5c. serving — eight streams at the default VOConfig: (a) kernels B, C, D
              bit for bit against their plain versions on an [8, 480, 640]
              stack of eight PlanesSequence seeds' first frames
@@ -67,14 +75,36 @@ Phases (any failure exits non-zero and prints no result line):
              aggregate frames/s, per-stream ATE, peak allocator memory,
              device kernels and busy share over 5 warm ticks; the fleets'
              graphs FT and FP (device ms and events per replay), 2 captures
-             each and none by their engines.
+             each and none by their engines. Then checkpoints: cli_vo
+             --engine device --checkpoint-dir with checkpoint_every 1 on
+             seed 0's sequence alone and on all eight (the classic fleet),
+             each run twice on one directory: the second run writes the
+             first run's trajectory files; B, C, D once per frame (tick)
+             each run stepped; each save is timed. From here
+             through phase 6 the PNG codec's decodes are counted.
 6. CLI     — cvsteer_tpu_torch.cli.main on a list of the 64 frames and one
              unreadable entry, with --filters g2 and then g4 (default
              --batch 16): 192 PNGs per run, each within 1 gray level of the
              plain path's 8-bit maps on the card with >= 99.9 % of pixels
              equal, and the maps kernel launched; then the fish image
              against the decoded goldens (mean L1 <= 2.5, the reference's
-             no-recode bar). Prints images/s.
+             no-recode bar). Prints images/s, and that the frames of
+             phases 5c and 6 decoded through io.native_codec (built from
+             io/native/codec.c at first use).
+10. features — extract_features on bench.py's g4_feature input (32 frames
+             of 480x640, uniform in [0, 255) from default_rng(7)) at order
+             4 (kernel D′ at 11 channels) and at order 2 with the
+             'strength' score: launches per call (B′ 1, A 5, D′ 1), the
+             whole Features equal to the path with every kernel replaced
+             by its plain version (plain_kernels), A at every level, B′ and
+             D′ bit for bit against their plain versions, frames/s (median
+             of FEAT_REPS warm calls) and A's, B′'s and D′'s device ms per
+             frame; (b) the same checks on phase 5's first frame at the
+             order-4 VO path's shapes ([1, 480, 640]: A at every level, B′,
+             D′ at C = 11, Features, launches), then DeviceVO with
+             frontend.order = 4 on phase 5's frames: initialized, one finite
+             pose per frame, 2 graphs, A 5, B′ 1, D′ 1 launches per frame,
+             frames/s, the ATE printed beside ate_bound (not gated).
 7. pyramid — steerable_pyramid_maps (5 levels, G2 and G4) on the 480x640
              frame against the same maps from the plain versions of the
              kernels, and d sum(basis^2) / d image through g2_basis and
@@ -111,9 +141,10 @@ Phases (any failure exits non-zero and prints no result line):
              measures once; then kernels G (rows, patches), S and V bit for
              bit and M within its stated tolerance against their plain
              versions, at those shapes and ragged ones, timed as in phase 4.
-Phase 9 runs after phase 7 and before phase 8.
-Each path phase (5-9, 5b, each cli_vo run of 5c) sets the launch counts to 0
-just before it and reads them just after. The line before the last is the per-kernel JSON record;
+Phase 10 runs after phase 6, then 7, 9 and 8.
+Each path phase (5-10, 5b, the chunks, each cli_vo run of 5c and of the
+checkpoints) sets the launch counts to 0 just before it and reads them just
+after. The line before the last is the per-kernel JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -157,6 +188,9 @@ PATH_KERNELS = {  # phase -> the kernels its path must launch
     "loop": ("pyr_down", "g2_features_full", "desc_sample"),
     "loop_host": ("pyr_down", "g2_features_full", "desc_sample"),
     "serving": ("pyr_down", "g2_features_full", "desc_sample"),
+    "features_g4": ("filter_bank", "pyr_down", "desc_sample"),
+    "features_g2_strength": ("filter_bank", "pyr_down", "desc_sample"),
+    "vo_g4": ("filter_bank", "pyr_down", "desc_sample"),
 }
 VO_LAUNCHES_PER_FRAME = {  # the VO front-end: one B, one C and one D per frame
     "filter_bank": 0, "pyr_down": 1, "g2_features_full": 1, "desc_sample": 1,
@@ -187,6 +221,15 @@ SERVE_STREAMS, SERVE_FRAMES, SERVE_HOST_FRAMES = 8, 40, 20
 SERVE_PIPE_CAP = 2
 SERVE_PROFILE_FROM, SERVE_PROFILE_TICKS = 10, 5  # profiled ticks; later ones are timed
 SERVE_RENDER_WORKERS = 8
+# phase 10: the reference benchmark's g4_feature cell (bench.py:316-322):
+# 32 frames of 480x640, uniform in [0, 255) from default_rng(7)
+FEAT_FRAMES, FEAT_HW, FEAT_SEED = 32, (480, 640), 7
+FEAT_REPS = 7  # timed calls after warm-up; their median is the call time
+FEAT_LAUNCHES_PER_CALL = {"filter_bank": 5, "pyr_down": 1, "desc_sample": 1}  # 5 levels
+# phase 10 (b), DeviceVO at order 4: the generic front-end once per frame
+VO_G4_LAUNCHES_PER_FRAME = {**FEAT_LAUNCHES_PER_CALL, "g2_features_full": 0}
+CHUNK = 8  # phase 5b: frames per issue_chunk
+CHUNK_SAME_POSE = 1e-5  # m: the chunk's poses against the sequential engine's
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(REPO, "cvsteer_tpu_torch", "io", "golden")
 
@@ -1861,6 +1904,409 @@ def check_probe_kernels():
     return records, ok
 
 
+def count_decodes(native_codec) -> list:
+    """Count the codec's decodes from now on: [n], kept current by a
+    wrapper around native_codec.imdecode_gray (thread-safe: the decode
+    pools call it from many threads)."""
+    import threading
+
+    n, lock, decode = [0], threading.Lock(), native_codec.imdecode_gray
+
+    def counted(data):
+        with lock:
+            n[0] += 1
+        return decode(data)
+    counted.original = decode
+    native_codec.imdecode_gray = counted
+    return n
+
+
+def restore_decodes(native_codec) -> None:
+    native_codec.imdecode_gray = native_codec.imdecode_gray.original
+
+
+def served_fps(lines) -> float:
+    """The aggregate frames/s of cli_vo's serving summary line."""
+    import re
+
+    for line in lines:
+        m = re.search(r"\(([0-9.]+) frames/s aggregate\)", line)
+        if m:
+            return float(m.group(1))
+    return math.nan
+
+
+# --- phase 10: the generic feature path, G4/H4 and G2 'strength' --------------
+
+
+@functools.lru_cache(maxsize=None)
+def feature_batch():
+    """Phase 10's input on the card: FEAT_FRAMES frames of FEAT_HW, uniform
+    in [0, 255) from default_rng(FEAT_SEED), as bench.py makes them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(FEAT_SEED)
+    x = rng.uniform(0, 255, (FEAT_FRAMES, *FEAT_HW)).astype("float32")
+    return torch.from_numpy(x).cuda()
+
+
+class plain_kernels:
+    """Within the block, every kernel wrapper the feature path calls is its
+    plain PyTorch version on the same device: kernel A (ops.cuda_frontend.
+    filter_bank, which g2_basis and g4_basis reach), B′ (the pyramid) and D′
+    (the levels' descriptor samples)."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from cvsteer_tpu_torch.features import descriptors
+        from cvsteer_tpu_torch.ops import cuda_desc as cd
+        from cvsteer_tpu_torch.ops import cuda_frontend as cf
+        from cvsteer_tpu_torch.ops import pyramid
+
+        def bank(image, xtaps, ytaps):
+            return cf.filter_bank_plain(image, np.ascontiguousarray(xtaps, np.float32),
+                                        np.ascontiguousarray(ytaps, np.float32))
+
+        def pyr(image, levels):
+            out = [image]
+            for _ in range(levels - 1):
+                out.append(cf.pyr_down_plain(out[-1]).contiguous())
+            return tuple(out)
+
+        self.saved = [(cf, "filter_bank", cf.filter_bank), (pyramid, "pyr_down_levels", pyramid.pyr_down_levels),
+                      (descriptors, "sample_patches_levels", descriptors.sample_patches_levels)]
+        cf.filter_bank, pyramid.pyr_down_levels = bank, pyr
+        descriptors.sample_patches_levels = cd.sample_patches_levels_plain
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def generic_agreement(x, fcfg) -> dict:
+    """The generic feature path (extract_features(cfg=fcfg) on ``x [B, H,
+    W]``, float32 on the card) held against its plain versions: the
+    launches of one call (counted from 0), the whole Features against the
+    path with every kernel replaced by its plain version (plain_kernels),
+    A at every level, B′ and D′ (at the path's keypoints, in one launch)
+    bit for bit. Returns those results with the levels, the bank, the
+    bases and D′'s inputs for the caller's timings."""
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.features.descriptors import _rotated_grid_coords
+    from cvsteer_tpu_torch.features.frontend import _level_keypoints, extract_features
+    from cvsteer_tpu_torch.filters import g2, g4
+    from cvsteer_tpu_torch.ops import cuda_desc as cd
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+
+    fm = g4 if fcfg.order == 4 else g2
+    bank = g4.g4_bank() if fcfg.order == 4 else g2.g2_bank()
+    basis_fn = (lambda im: g4.g4_basis(im, bank)) if fcfg.order == 4 else (lambda im: g2.g2_basis(im, bank))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    feats = extract_features(x, cfg=fcfg)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    with torch.no_grad(), plain_kernels():
+        plain = extract_features(x, cfg=fcfg)
+    torch.cuda.synchronize()
+    same = {f: bool(torch.equal(a, b)) for f, a, b in zip(feats._fields, feats, plain)}
+
+    # the kernels at the path's shapes: the pyramid (B′), the bank on
+    # every level (A), the levels' keypoints sampled in one launch (D′)
+    levels = [x]
+    for _ in range(fcfg.levels - 1):
+        levels.append(cf.pyr_down_plain(levels[-1]).contiguous())
+    pyr = diff(cf.pyr_down_levels(x, fcfg.levels)[1:], levels[1:])
+    a_err, a_bits, bases, kps = 0.0, True, [], []
+    for lvl, lv in enumerate(levels):
+        k = cf.filter_bank(lv, bank.xtaps, bank.ytaps)
+        e, b = diff([k], [cf.filter_bank_plain(lv, bank.xtaps, bank.ytaps)])
+        a_err, a_bits = max(a_err, e), a_bits and b
+        basis, kp = _level_keypoints(lv, lvl, fcfg, basis_fn=basis_fn, coeff_fn=fm.energy_coefficients)
+        bases.append(basis)
+        kps.append(kp)
+    counts = [k.capacity for k in kps]
+    ys, xs = [], []
+    for kp in kps:
+        yy, xx, _, _ = _rotated_grid_coords(kp, fcfg.descriptor_grid, fcfg.descriptor_spacing)
+        ys.append(yy)
+        xs.append(xx)
+    ys, xs = torch.cat(ys, 1).contiguous(), torch.cat(xs, 1).contiguous()
+    desc = diff([cd.sample_patches_levels(bases, ys, xs, counts)],
+                [cd.sample_patches_levels_plain(bases, ys, xs, counts)])
+    return dict(
+        feats=feats, launches=launches, same=same, pyr_down=pyr, filter_bank=(a_err, a_bits),
+        desc_sample=desc, levels=levels, bank=bank, bases=bases, ys=ys, xs=xs, counts=counts,
+        channels=bases[0].shape[1],
+    )
+
+
+def run_features() -> dict:
+    """Phase 10: extract_features on feature_batch() at order 4 (the G4/H4
+    bank, D′ at C = 11) and at order 2 with the 'strength' score (the G2
+    generic path, D′ at C = 7): generic_agreement's checks, frames/s
+    (median of FEAT_REPS warm calls) and the device ms per frame of A, B′
+    and D′."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig, extract_features
+    from cvsteer_tpu_torch.ops import cuda_desc as cd
+    from cvsteer_tpu_torch.ops import cuda_frontend as cf
+    from cvsteer_tpu_torch.utils.profiling import device_ms
+
+    x = feature_batch()
+    out = {}
+    for tag, fcfg in (("g4", FrontendConfig(order=4)), ("g2_strength", FrontendConfig(score="strength"))):
+        ag = generic_agreement(x, fcfg)
+        feats, levels, bank = ag["feats"], ag["levels"], ag["bank"]
+        bases, ys, xs, counts = ag["bases"], ag["ys"], ag["xs"], ag["counts"]
+
+        # frames/s: the host clock around a call that ends in a synchronize
+        for _ in range(2):
+            extract_features(x, cfg=fcfg)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(FEAT_REPS):
+            t0 = time.perf_counter()
+            extract_features(x, cfg=fcfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        call_s = float(np.median(times))
+        n = FEAT_FRAMES
+        a_ms = device_ms(lambda: [cf.filter_bank(lv, bank.xtaps, bank.ytaps) for lv in levels],
+                         ("filter_bank_kernel",), len(levels))
+        b_ms = device_ms(lambda: cf.pyr_down_levels(x, fcfg.levels), ("pyr_down_kernel",), 1)
+        d_ms = device_ms(lambda: cd.sample_patches_levels(bases, ys, xs, counts),
+                         ("desc_sample_kernel",), 1)
+        d_plain = device_ms(lambda: cd.sample_patches_levels_plain(bases, ys, xs, counts), reps=3)[0]
+        # D′'s bound: coordinates in, 4 corner texels of C channels in, C
+        # samples out; ~10 flops of coordinates per sample and 8 of lerps
+        # per channel (phase 4's count)
+        c = ag["channels"]
+        d_bound = Bound()
+        n_s = ys.numel()
+        d_bound.add(n_s * (8 + 16 * c + 4 * c), n_s * (10 + 8 * c))
+        out[tag] = dict(
+            cfg=fcfg, launches=ag["launches"], same=ag["same"], valid=int(feats.valid.sum()),
+            shape_ok=tuple(feats.desc.shape) == (n, fcfg.capacity, fcfg.descriptor_dim),
+            finite=bool(torch.isfinite(feats.desc).all() and torch.isfinite(feats.yx).all()),
+            pyr_down=ag["pyr_down"], filter_bank=ag["filter_bank"], desc_sample=ag["desc_sample"],
+            channels=c, fps=n / call_s, call_ms=1e3 * call_s,
+            kernel_ms_per_frame={"filter_bank": a_ms[0] / n, "pyr_down": b_ms[0] / n,
+                                 "desc_sample": d_ms[0] / n},
+            # device events the profiler saw per call (0: CUDA events, an
+            # upper bound, because it saw none: utils/profiling.device_ms)
+            kernel_events_seen={"filter_bank": a_ms[1], "pyr_down": b_ms[1], "desc_sample": d_ms[1]},
+            desc_sample_ms=d_ms[0], desc_sample_events_seen=d_ms[1], desc_sample_plain_ms=d_plain,
+            desc_sample_bound=d_bound.fields(), keypoints=counts,
+        )
+        del feats, ag, bases, levels
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_vo_g4(images, seed: int) -> dict:
+    """Phase 10 (b): A at every level, B′ and D′ at C = 11 bit for bit
+    against their plain versions on phase 5's first frame at this path's
+    shapes ([1, 480, 640], generic_agreement), then DeviceVO with
+    frontend.order = 4 on phase 5's frames (the launches counted from 0)."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.evaluate import ate_rmse
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    cfg = VOConfig(frontend=FrontendConfig(order=4))
+    K = cfg.intrinsics
+    n = len(images)
+    ag = generic_agreement(torch.as_tensor(images[0]).cuda().to(torch.float32)[None], cfg.frontend)
+    agree = {k: ag[k] for k in ("same", "pyr_down", "filter_bank", "desc_sample", "channels",
+                                "launches", "counts")}
+    del ag
+    seq = PlanesSequence(n_frames=n, image_hw=(480, 640), fx=K.fx, fy=K.fy, cx=K.cx, cy=K.cy,
+                         seed=seed)
+    vo = DeviceVO(cfg, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for img in images:
+        vo.process_image(img)
+    state = vo.finalize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    Rs, ts = state.poses()
+    gR, gt = seq.gt_arrays()
+    frames = [fi for fi, _, _ in state.trajectory]
+    whole = frames == list(range(n))
+    return dict(
+        state=state, launches=launches, fps=n / dt, captures=vo.captures, whole=whole,
+        finite=bool(np.isfinite(Rs).all() and np.isfinite(ts).all()),
+        ate=ate_rmse(Rs, ts, gR[frames], gt[frames]) if whole else float("nan"),
+        gate=ate_bound(seq, state, cfg), agreement=agree,
+    )
+
+
+def run_vo_chunk(images, sequential: dict) -> dict:
+    """Phase 5b (chunks): phase 5's frames through DeviceVO.issue_chunk /
+    complete_chunk, CHUNK frames a chunk, each chunk's features from one
+    batched extract_features; bootstrap frames, and the rows a chunk does
+    not consume, one at a time (process_frame). The sequential engine fed
+    the same feature rows is the reference (and phase 5b's run, from
+    single-frame extraction, is printed beside it). Then the device time of
+    one replay of graph C. The chunked run, its batched front-end included,
+    is timed, and its launches are counted from 0."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.cli_vo import _to_device
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+    from cvsteer_tpu_torch.utils.metrics import StepTimer
+    from cvsteer_tpu_torch.utils.profiling import device_ms
+
+    cfg = VOConfig()
+    n = len(images)
+    stack = np.stack(images).astype(np.float32)
+    dev = torch.device("cuda")
+    batches = [extract_features(_to_device(stack[k:k + CHUNK], dev), cfg=cfg.frontend)
+               for k in range(0, n, CHUNK)]
+    rows = [Features(*(f[j] for f in b)) for b in batches for j in range(b.yx.shape[0])]
+    seq = DeviceVO(cfg, device="cuda")
+    for f in rows:
+        seq.process_frame(f)
+    seq_state = seq.finalize()
+
+    vo = DeviceVO(cfg, device="cuda")
+    vo.state.timer = timer = StepTimer(sync=torch.cuda.synchronize)
+    waits = [0]
+    wait = vo._wait_fetch
+
+    def counted(host):
+        waits[0] += 1
+        return wait(host)
+    vo._wait_fetch = counted
+    chunks, chunk_waits, consumed = 0, 0, []
+    del batches  # the chunked run extracts its own, one batched call a chunk
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    k = 0
+    while k < n:
+        if k % CHUNK == 0:
+            b = extract_features(_to_device(stack[k:k + CHUNK], dev), cfg=cfg.frontend)
+        j0 = k % CHUNK
+        if vo.map is None or j0:  # bootstrap, or the rest of a chunk a loss cut short
+            vo.process_frame(Features(*(f[j0] for f in b)))
+            k += 1
+            continue
+        span = b.yx.shape[0]
+        w0 = waits[0]
+        out = vo.issue_chunk(b.yx, b.desc, b.valid)
+        done = vo.complete_chunk([Features(*(f[j] for f in b)) for j in range(span)], out)
+        chunks += 1
+        chunk_waits += waits[0] - w0
+        consumed.append(done)
+        for j in range(done, span):
+            vo.process_frame(Features(*(f[j] for f in b)))
+        k += span
+    state = vo.finalize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    same_kf = [kf.index for kf in state.keyframes] == [kf.index for kf in seq_state.keyframes]
+    d = [max(np.abs(Ra - Rb).max(), np.abs(ta - tb).max())
+         for (_, Ra, ta), (_, Rb, tb) in zip(state.trajectory, seq_state.trajectory)]
+    bits = same_kf and len(state.trajectory) == len(seq_state.trajectory) and all(
+        np.array_equal(Ra, Rb) and np.array_equal(ta, tb)
+        for (_, Ra, ta), (_, Rb, tb) in zip(state.trajectory, seq_state.trajectory))
+    d5 = [np.abs(-Ra.T @ ta + Rb.T @ tb).max()
+          for (_, Ra, ta), (_, Rb, tb) in zip(state.trajectory, sequential["state"].trajectory)]
+    graph = vo._chunks[CHUNK][1]
+    ms, seen = device_ms(lambda: graph.replay(), reps=5)
+    capture_s = timer.total_s.get("capture", 0.0)  # T and P, then C (with their warm-ups)
+    return dict(
+        state=state, fps=n / wall, fps_no_capture=n / (wall - capture_s), capture_s=capture_s,
+        wall_s=wall, chunks=chunks, consumed=consumed,
+        waits_per_chunk=chunk_waits / max(chunks, 1), same_keyframes=same_kf, bit_equal=bits,
+        max_pose_diff=float(max(d, default=math.inf)), captures=vo.captures,
+        keyframes=len(state.keyframes), vs_phase5b=float(max(d5, default=math.inf)),
+        graph_ms=ms, graph_events=seen, launches=launches, calls=-(-n // CHUNK),
+    )
+
+
+def run_checkpoint_cli(roots, workdir: str) -> dict:
+    """Phases 5b and 5c (checkpoints): cli_vo --checkpoint-dir with
+    checkpoint_every 1, twice on one directory, on one stream (--engine
+    device) and on the 8-stream classic fleet; the second run must write
+    the first run's trajectory files (tests/test_cli_vo.py:343-368). Each
+    save is timed (a wrapper around SlamCheckpointer.save). Each run's
+    launches are counted from 0 and held to the frames it stepped: one B,
+    C and D per frame on one stream, per tick on the fleet, from the frame
+    each stream resumed at (cli_vo --verbose says which) to the end."""
+    import contextlib
+    import io as _io
+    import re
+
+    import torch
+
+    from cvsteer_tpu_torch import cli_vo, kernels
+    from cvsteer_tpu_torch.utils import checkpoint as ck
+
+    out = {}
+    save = ck.SlamCheckpointer.save
+    for name, inputs in (("one stream", roots[:1]), ("fleet", roots)):
+        saves = []
+
+        def timed(self, step, state):
+            t0 = time.perf_counter()
+            save(self, step, state)
+            saves.append(1e3 * (time.perf_counter() - t0))
+        ck.SlamCheckpointer.save = timed
+        tag = "ck1" if len(inputs) == 1 else "ck8"
+        trajs, rcs, walls, launches, stepped = [], [], [], [], []
+        try:
+            for run in ("a", "b"):
+                path = os.path.join(workdir, f"{tag}_{run}.txt")
+                err = _io.StringIO()
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(_io.StringIO()), contextlib.redirect_stderr(err):
+                    rcs.append(cli_vo.main([
+                        "--input", ",".join(inputs), "--engine", "device",
+                        "--checkpoint-dir", os.path.join(workdir, tag), "--set", "checkpoint_every=1",
+                        "--output", path, "--verbose"]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                launches.append(kernels.launch_counts())
+                starts = [int(m) for m in re.findall(r"resumed at frame (\d+)", err.getvalue())]
+                stepped.append(SERVE_FRAMES - (min(starts) if len(starts) == len(inputs) else 0))
+                names = ([path] if len(inputs) == 1
+                         else [cli_vo._stream_output_path(path, i) for i in range(len(inputs))])
+                trajs.append([open(p).read() for p in names])
+        finally:
+            ck.SlamCheckpointer.save = save
+        out[name] = dict(rcs=rcs, same=trajs[0] == trajs[1], lines=[len(t.splitlines()) for t in trajs[0]],
+                         saves=len(saves), save_ms=sum(saves) / max(len(saves), 1), walls=walls,
+                         launches=launches, stepped=stepped)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -1995,7 +2441,43 @@ def main(argv=None) -> int:
         checks["VO device profile: device time seen"] = dprof["busy_share"] > 0
         launches["vo_device"] = dres["launches"]
 
-        # 5c. serving
+        # 5b (chunks): the same frames through issue_chunk / complete_chunk
+        t0 = time.perf_counter()
+        cres = run_vo_chunk(res["images"], dres)
+        t_rep, p_rep = dres["replay"]["T"]["device_ms"], dres["replay"]["P"]["device_ms"]
+        print(f"{card} | VO device chunks of {CHUNK}: {n} frames in {cres['wall_s']:.2f} s "
+              f"({cres['fps']:.2f} frames/s, batched front-end included; "
+              f"{cres['fps_no_capture']:.2f} without the {cres['capture_s']:.2f} s of the three "
+              f"captures and their warm-ups); {cres['chunks']} chunks, "
+              f"rows consumed {cres['consumed']}, {cres['waits_per_chunk']:.2f} fetches per chunk; "
+              f"keyframes {cres['keyframes']}, the sequential engine's on the same feature rows: "
+              f"{cres['same_keyframes']}, poses bit for bit {cres['bit_equal']} (max |diff| "
+              f"{cres['max_pose_diff']:.3e}); camera centers against phase 5b's single-frame "
+              f"extraction {cres['vs_phase5b']:.3e} m; captures {cres['captures']}")
+        how = "torch.profiler" if cres["graph_events"] else "CUDA events (the profiler saw no kernel)"
+        print(f"{card} | VO device graph C ({CHUNK} frames, T then masked P each): "
+              f"{cres['graph_ms']:.4f} ms device per replay, {cres['graph_ms'] / CHUNK:.4f} ms per "
+              f"frame ({how}; {cres['graph_events']:.0f} device events per replay); sequential T "
+              f"{t_rep:.4f} + P {p_rep:.4f} ms per replay; phase {time.perf_counter() - t0:.1f} s")
+        checks.update({
+            "VO chunks: the sequential engine's keyframes": cres["same_keyframes"],
+            f"VO chunks: the sequential engine's poses (bar {CHUNK_SAME_POSE} m)":
+                cres["max_pose_diff"] <= CHUNK_SAME_POSE,
+            "VO chunks: 3 graphs (T, P, C)": cres["captures"] == 3,
+            "VO chunks: one fetch per chunk": cres["waits_per_chunk"] == 1.0,
+            "VO chunks: B, C, D once per batched front-end call (one a chunk), A none": all(
+                cres["launches"][k] == v * cres["calls"] for k, v in VO_LAUNCHES_PER_FRAME.items()),
+        })
+        print(f"{card} | VO device chunks: launches {cres['launches']} over {cres['calls']} "
+              f"batched front-end calls of {CHUNK} frames")
+        launches["chunk"] = cres["launches"]
+        del cres
+
+        # 5c. serving; PNG decodes counted from here (the codec's calls)
+        from cvsteer_tpu_torch.io import native_codec
+
+        codec_ok = native_codec.available()
+        decodes = count_decodes(native_codec)
         t0 = time.perf_counter()
         mem0 = torch.cuda.memory_allocated()
         srv = run_serving(workdir)
@@ -2068,6 +2550,30 @@ def main(argv=None) -> int:
         checks["serving: a 1-stream fleet is DeviceVO bit for bit"] = bt["one_equal"]
         checks["serving: eight copies of a stream give eight equal rows"] = bt["rows_equal"]
         launches["serving"] = srv["cli"]["device"]["launches"]
+        serve_decodes = decodes[0]
+        serve_fps = {k: served_fps(r["stdout"]) for k, r in srv["cli"].items()}
+
+        # 5b and 5c (checkpoints): cli_vo --checkpoint-dir, run twice
+        t1 = time.perf_counter()
+        ckr = run_checkpoint_cli([os.path.join(workdir, f"serve{s}") for s in range(SERVE_STREAMS)],
+                                 workdir)
+        for name, r in ckr.items():
+            print(f"{card} | checkpoints, cli_vo --engine device, {name}: rc {r['rcs']}, "
+                  f"{r['saves']} saves at {r['save_ms']:.2f} ms each (checkpoint_every 1), runs "
+                  f"{[round(w, 2) for w in r['walls']]} s; the resumed run's trajectory files "
+                  f"equal the first run's: {r['same']} ({r['lines']} poses)")
+            print(f"{card} | checkpoints, {name}: launches per run {r['launches']}, frames (ticks) "
+                  f"stepped per run {r['stepped']}")
+            checks[f"checkpoints {name}: rc 0, resumed run writes the same trajectories"] = (
+                r["rcs"] == [0, 0] and r["same"] and all(n == SERVE_FRAMES for n in r["lines"])
+                and r["saves"] > 0)
+            checks[f"checkpoints {name}: B, C, D once per frame (tick) stepped, A none"] = (
+                r["stepped"][0] == SERVE_FRAMES and all(
+                    la[k] == v * st for la, st in zip(r["launches"], r["stepped"])
+                    for k, v in VO_LAUNCHES_PER_FRAME.items()))
+        launches["checkpoint"] = {k: sum(la[k] for r in ckr.values() for la in r["launches"])
+                                  for k in VO_LAUNCHES_PER_FRAME}
+        print(f"{card} | checkpoints: {time.perf_counter() - t1:.1f} s")
         print(f"{card} | phase 5c (serving) {time.perf_counter() - t0:.1f} s (frames rendered "
               f"and written in {srv['render_s']:.1f} s, {SERVE_RENDER_WORKERS} processes)")
         del srv
@@ -2081,6 +2587,87 @@ def main(argv=None) -> int:
         launches.update({k: v["launches"] for k, v in runs.items() if "launches" in v})
         print(f"CLI images/s on {card}: g2 {runs['cli_g2']['images_per_s']:.2f}, "
               f"g4 {runs['cli_g4']['images_per_s']:.2f}")
+        cli_decodes = decodes[0] - serve_decodes
+        print(f"{card} | codec: native_codec.available() {codec_ok}; PNG decodes through it: "
+              f"serving and checkpoint runs {serve_decodes}, CLI {cli_decodes}; cli_vo serving "
+              f"frames/s with decode: classic {serve_fps['device']:.2f}, pipelined "
+              f"{serve_fps['device --pipeline']:.2f} (PERF.md §5, the numpy decoder: 46.12 classic); "
+              f"CLI images/s g2 {runs['cli_g2']['images_per_s']:.2f}, g4 "
+              f"{runs['cli_g4']['images_per_s']:.2f} (PERF.md §5, the numpy decoder: 50.93 / 47.61)")
+        checks["codec: available and the frames decoded through it"] = (
+            codec_ok and serve_decodes >= 2 * SERVE_STREAMS * SERVE_FRAMES
+            and cli_decodes >= 2 * CLI_FRAMES)
+        restore_decodes(native_codec)
+
+        # 10. the generic feature path (G4/H4 and G2 'strength')
+        t0 = time.perf_counter()
+        fr = run_features()
+        for tag, r in fr.items():
+            c = r["cfg"]
+            print(f"{card} | features {tag} (order {c.order}, score {c.score}): {FEAT_FRAMES} frames "
+                  f"{FEAT_HW[0]}x{FEAT_HW[1]}, {r['fps']:.2f} frames/s ({r['call_ms']:.2f} ms per "
+                  f"call, median of {FEAT_REPS}); {r['valid']} valid keypoints; launches per call "
+                  f"{ {k: r['launches'][k] for k in FEAT_LAUNCHES_PER_CALL} }; device ms per frame "
+                  + json.dumps({k: round(v, 6) for k, v in r["kernel_ms_per_frame"].items()})
+                  + " (device events seen per call " + json.dumps(r["kernel_events_seen"])
+                  + ", 0: timed by CUDA events)"
+                  + f"; D′ at C = {r['channels']}: {r['desc_sample_ms']:.4f} ms per call, plain "
+                  f"{r['desc_sample_plain_ms']:.4f}, bound {r['desc_sample_bound']['bound_ms']:.4f} "
+                  f"({r['desc_sample_bound']['bound_by']}); against plain: A {r['filter_bank']}, "
+                  f"B′ {r['pyr_down']}, D′ {r['desc_sample']}; Features equal to the all-plain "
+                  f"path: {r['same']}")
+            checks.update({
+                f"features {tag}: A, B′, D′ bit-equal to plain":
+                    r["filter_bank"][1] and r["pyr_down"][1] and r["desc_sample"][1],
+                f"features {tag}: Features equal to the all-plain path": all(r["same"].values()),
+                f"features {tag}: launches per call": all(
+                    r["launches"][k] == v for k, v in FEAT_LAUNCHES_PER_CALL.items()),
+                f"features {tag}: shapes, finite, keypoints": (
+                    r["shape_ok"] and r["finite"] and r["valid"] > FEAT_FRAMES * 100),
+            })
+            launches[f"features_{tag}"] = r["launches"]
+            rec = {x["name"]: x for x in records}
+            rec["desc_sample"].update({
+                f"features_{tag}_c{r['channels']}_ms": r["desc_sample_ms"],
+                f"features_{tag}_c{r['channels']}_plain_ms": r["desc_sample_plain_ms"],
+                f"features_{tag}_c{r['channels']}_bound_ms": r["desc_sample_bound"]["bound_ms"],
+                f"features_{tag}_c{r['channels']}_bound_by": r["desc_sample_bound"]["bound_by"],
+                f"features_{tag}_c{r['channels']}_max_abs_err": r["desc_sample"][0],
+                f"features_{tag}_c{r['channels']}_bit_equal": r["desc_sample"][1],
+                f"features_{tag}_keypoints": r["keypoints"],
+            })
+            for k in ("filter_bank", "pyr_down"):
+                rec[k][f"features_{tag}_device_ms_per_frame"] = r["kernel_ms_per_frame"][k]
+        vg = run_vo_g4(res["images"], args.seed)
+        print(f"{card} | VO device, frontend.order = 4: {len(res['images'])} frames in "
+              f"{len(res['images']) / vg['fps']:.2f} s ({vg['fps']:.2f} frames/s); ATE "
+              f"{vg['ate']:.4f} m (ate_bound {vg['gate']['bound']:.4f} m, printed, not gated); "
+              f"keyframes {len(vg['state'].keyframes)}; captures {vg['captures']}; launches "
+              f"{ {k: vg['launches'][k] for k in PATH_KERNELS['vo_g4']} }; phase 10 "
+              f"{time.perf_counter() - t0:.1f} s")
+        va = vg["agreement"]
+        print(f"{card} | VO order 4 front-end on phase 5's first frame [1, 480, 640] against "
+              f"plain: A {va['filter_bank']}, B′ {va['pyr_down']}, D′ at C = {va['channels']} "
+              f"{va['desc_sample']} ({sum(va['counts'])} keypoints); Features equal to the "
+              f"all-plain path: {va['same']}; launches of that call "
+              f"{ {k: va['launches'][k] for k in VO_G4_LAUNCHES_PER_FRAME} }")
+        checks.update({
+            "VO order 4: initialized, one finite pose per frame": (
+                vg["state"].initialized and vg["whole"] and vg["finite"]),
+            "VO order 4: 2 graphs": vg["captures"] == 2,
+            "VO order 4: A 5, B′ 1, D′ 1 launches per frame, C none": all(
+                vg["launches"][k] == v * len(res["images"])
+                for k, v in VO_G4_LAUNCHES_PER_FRAME.items()),
+            "VO order 4: A, B′, D′ at C = 11 bit-equal to plain on one frame": (
+                va["channels"] == 11 and va["filter_bank"][1] and va["pyr_down"][1]
+                and va["desc_sample"][1]),
+            "VO order 4: one frame's Features equal to the all-plain path": all(va["same"].values()),
+            "VO order 4: launches of one frame's call": all(
+                va["launches"][k] == v for k, v in VO_G4_LAUNCHES_PER_FRAME.items()),
+        })
+        launches["vo_g4"] = vg["launches"]
+        del fr, vg
+        gc.collect()
 
     # 7. pyramid maps and gradients
     launches["pyramid"], pyr_checks = run_pyramid(frame)
@@ -2170,11 +2757,17 @@ def main(argv=None) -> int:
         phase = LAUNCHES_FROM[r["name"]]
         r["launches"] = launches[phase][r["name"]] if phase else 0
         r["launches_from"] = phase
+        if r["name"] in PATH_KERNELS["features_g4"]:
+            r["launches_features_g4"] = launches["features_g4"][r["name"]]
+            r["launches_features_g2_strength"] = launches["features_g2_strength"][r["name"]]
+            r["launches_vo_g4"] = launches["vo_g4"][r["name"]]
         if r["name"] in PATH_KERNELS["vo_device"]:
             r["launches_vo_device"] = launches["vo_device"][r["name"]]
             r["launches_loop"] = launches["loop"][r["name"]]
             r["launches_loop_host"] = launches["loop_host"][r["name"]]
             r["launches_serving"] = launches["serving"][r["name"]]
+            r["launches_chunk"] = launches["chunk"][r["name"]]
+            r["launches_checkpoint"] = launches["checkpoint"][r["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,

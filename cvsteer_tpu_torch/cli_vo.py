@@ -3,10 +3,12 @@
 The port of cvsteer_tpu.cli_vo: run the steerable-front-end VO (keyframing
 + windowed Schur BA) over a TUM-RGBD sequence, a KITTI odometry sequence or
 a plain image directory; report ATE RMSE when ground truth is present;
-write the trajectory in TUM format. ``--engine host`` (the default) runs
-slam.vo; ``--engine device`` runs slam.vo_device, the device-resident
-engine (two captured CUDA graphs per frame on a card, the same steps
-eagerly with ``--device cpu``).
+write the trajectory in TUM format; checkpoint and resume mid-sequence
+with ``--checkpoint-dir`` (every ``checkpoint_every`` keyframes and at the
+end; a second run on the same directory resumes at the saved frame).
+``--engine host`` (the default) runs slam.vo; ``--engine device`` runs
+slam.vo_device, the device-resident engine (two captured CUDA graphs per
+frame on a card, the same steps eagerly with ``--device cpu``).
 
   python -m cvsteer_tpu_torch.cli_vo --input <seq_dir> --set slam.window=10 \
       --output traj.txt --engine device --device cuda
@@ -18,12 +20,12 @@ slam.vo_server.VOServer with ``--engine host``, slam.vo_device.DeviceVOFleet
 (two CUDA graphs over the stacked maps of all streams) with ``--engine
 device``, pipelined one tick deep with ``--pipeline``. One trajectory file
 (``traj.<i>.txt`` for ``--output traj.txt``) and one ATE line per stream,
-then the aggregate frames/s.
+then the aggregate frames/s. With ``--checkpoint-dir`` each stream keeps
+its checkpoints in ``stream<i>/`` there, and a resumed stream skips the
+ticks before its saved frame.
 
   python -m cvsteer_tpu_torch.cli_vo --input seqA,seqB,seqC --engine device \
       --pipeline --output traj.txt
-
-Not ported yet (raises): ``--checkpoint-dir``.
 """
 
 from __future__ import annotations
@@ -62,9 +64,6 @@ def main(argv=None) -> int:
     if not roots:
         print("no input sequences given", file=sys.stderr)
         return 1
-    if args.checkpoint_dir:
-        raise NotImplementedError("checkpointing (utils/checkpoint.py) is not ported yet")
-
     import torch
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -80,13 +79,15 @@ def main(argv=None) -> int:
         apply_overrides,
         load_config,
     )
-    from cvsteer_tpu_torch.utils.metrics import StepTimer
+    from cvsteer_tpu_torch.utils.metrics import Metrics, StepTimer
 
     cfg = load_config(args.config) if args.config else EngineConfig()
     if args.camera_preset:
         cfg = apply_camera_preset(cfg, args.camera_preset)
     if args.set:
         cfg = apply_overrides(cfg, tuple(args.set))
+    if args.checkpoint_dir:
+        cfg.checkpoint_dir = args.checkpoint_dir
     if len(roots) > 1:
         return _run_server(args, cfg, roots)
 
@@ -103,9 +104,25 @@ def main(argv=None) -> int:
         state = engine.state
     else:
         state = init_vo(vo_config(cfg), device=args.device)
+
+    ckpt = None
+    start = 0
+    if cfg.checkpoint_dir:
+        from cvsteer_tpu_torch.utils.checkpoint import SlamCheckpointer
+
+        ckpt = SlamCheckpointer(cfg.checkpoint_dir)
+        if ckpt.latest_step() is not None:
+            state = ckpt.restore(state)
+            if engine is not None:
+                engine.adopt(state)
+            start = state.frame_count
+            if args.verbose:
+                print(f"resumed at frame {start}", file=sys.stderr)
+
+    metrics = Metrics()
     timer = StepTimer(sync=torch.cuda.synchronize if args.device.startswith("cuda") else None)
-    n_frames = 0
-    for k in range(len(seq.image_paths)):
+    last_kf_count = len(state.keyframes)
+    for k in range(start, len(seq.image_paths)):
         with timer.span("decode"):
             img = imread_gray_f32(seq.image_paths[k])
         if img is None:
@@ -120,8 +137,25 @@ def main(argv=None) -> int:
                 state = engine.state
             else:
                 state = process_image(state, img)
-        n_frames += 1
+        metrics.frame()
+        if len(state.keyframes) != last_kf_count:
+            metrics.count("keyframes", len(state.keyframes) - last_kf_count)
+            last_kf_count = len(state.keyframes)
+            if ckpt is not None and cfg.checkpoint_every and (
+                last_kf_count % cfg.checkpoint_every == 0
+            ):
+                with timer.span("checkpoint"):
+                    if engine is not None:
+                        engine.sync_host()  # a checkpoint needs the landmark positions
+                    ckpt.save(last_kf_count, state)
+        if args.verbose and cfg.log_every and (k + 1) % cfg.log_every == 0:
+            metrics.gauge("landmarks", state.num_landmarks)
+            metrics.log(step=k + 1, **timer.means_ms())
+
     state = engine.finalize() if engine is not None else finalize(state)
+    if ckpt is not None:
+        ckpt.save(len(state.keyframes), state)
+        ckpt.close()
 
     if args.output:
         _write_trajectory(args.output, state, seq)
@@ -129,11 +163,9 @@ def main(argv=None) -> int:
     if ate is not None:
         print(f"ATE RMSE: {ate:.4f} m over {n_traj} frames")
     if args.verbose:
-        vo_s = timer.total_s.get("vo", 0.0)
         print(
-            f"frames/s: {n_frames / max(vo_s, 1e-9):.2f}; keyframes: "
-            f"{len(state.keyframes)}; landmarks: {state.num_landmarks}; "
-            f"phase ms: {timer.means_ms()}",
+            f"frames/s: {metrics.fps:.2f}; keyframes: {len(state.keyframes)}; "
+            f"landmarks: {state.num_landmarks}; phase ms: {timer.means_ms()}",
             file=sys.stderr,
         )
     return 0
@@ -223,7 +255,11 @@ def _run_server(args, cfg, roots) -> int:
     per distinct image shape (the batch padded to the group's running
     size), then one ``step`` of the server. An unreadable frame advances
     its own stream's frame counter, so trajectory rows stay aligned with
-    the ground truth."""
+    the ground truth. With a checkpoint directory each stream restores from
+    and saves to its ``stream<i>`` subdirectory; a resumed stream skips the
+    ticks before its restored frame count (a fleet engine adopts the state,
+    and its row enters the stack at its first tick, by ``copy_``)."""
+    import os
     import time
     from concurrent.futures import ThreadPoolExecutor
 
@@ -249,6 +285,24 @@ def _run_server(args, cfg, roots) -> int:
         from cvsteer_tpu_torch.slam.vo_server import VOServer
 
         srv = VOServer(vo_cfg, n_streams=n, device=args.device)
+    engines = srv.engines if args.engine == "device" else None
+    ckpts = [None] * n
+    start = [0] * n
+    if cfg.checkpoint_dir:
+        from cvsteer_tpu_torch.utils.checkpoint import SlamCheckpointer
+
+        for i in range(n):
+            ckpts[i] = SlamCheckpointer(os.path.join(cfg.checkpoint_dir, f"stream{i}"))
+            if ckpts[i].latest_step() is not None:
+                restored = ckpts[i].restore(srv.states[i])
+                if engines is not None:
+                    engines[i].adopt(restored)
+                else:
+                    srv.states[i] = restored
+                start[i] = restored.frame_count
+                if args.verbose:
+                    print(f"stream {i}: resumed at frame {start[i]}", file=sys.stderr)
+    last_kf = [len(st.keyframes) for st in srv.states]
     dev = torch.device(args.device)
     n_ticks = max(len(s.image_paths) for s in seqs)
     frames_done = 0
@@ -256,7 +310,8 @@ def _run_server(args, cfg, roots) -> int:
     with ThreadPoolExecutor(max_workers=min(8, n)) as pool:
         t0 = time.perf_counter()
         for k in range(n_ticks):
-            paths = [s.image_paths[k] if k < len(s.image_paths) else None for s in seqs]
+            paths = [s.image_paths[k] if start[i] <= k < len(s.image_paths) else None
+                     for i, s in enumerate(seqs)]
             imgs = list(pool.map(lambda p: imread_gray_f32(p) if p else None, paths))
             frames = [None] * n
             by_shape = {}
@@ -278,7 +333,20 @@ def _run_server(args, cfg, roots) -> int:
                     if args.verbose:
                         print(f"skip unreadable: {paths[i]}", file=sys.stderr)
                     srv.states[i].frame_count += 1
+            for i, st in enumerate(srv.states):
+                nk = len(st.keyframes)
+                if nk != last_kf[i]:
+                    last_kf[i] = nk
+                    if ckpts[i] is not None and cfg.checkpoint_every and (
+                        nk % cfg.checkpoint_every == 0
+                    ):
+                        # a checkpoint needs the landmark positions
+                        ckpts[i].save(nk, srv.sync_host(i) if engines is not None else st)
         states = [srv.finalize(i) for i in range(n)]
+        for ck, st in zip(ckpts, states):
+            if ck is not None:
+                ck.save(len(st.keyframes), st)
+                ck.close()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0

@@ -1,13 +1,17 @@
-"""Phase descriptors from the steered quadrature pair (twin of the G2 path
-of cvsteer_tpu.features.descriptors).
+"""Phase descriptors from the steered quadrature pair (twin of
+cvsteer_tpu.features.descriptors).
 
 Recipe: a G x G grid of sample offsets (spacing in pixels) rotated by the
-keypoint's dominant orientation theta; at each sample the 7 basis
+keypoint's dominant orientation theta; at each sample the C basis
 responses are bilinearly interpolated (kernel D on the card) and steered
-to theta; the (g2, h2) pairs of all samples form a vector [2 G^2] that is
-L2-normalized. Every step but the sampling is elementwise per keypoint,
-so the keypoints of all pyramid levels go through it together
-(:func:`phase_descriptors_levels`, one kernel D launch per frame).
+to theta, G2/H2 from the 7 channels of the second-order basis or G4/H4
+from the 11 of the fourth-order one; the pairs of all samples form a
+vector [2 G^2] that is L2-normalized. Every step but the sampling is
+elementwise per keypoint, so the keypoints of all pyramid levels go
+through it together (:func:`phase_descriptors_levels`, one kernel D launch
+per frame). Sampling is fp32 (kernel D reads fp32 corners): the
+``fp32_sampling`` argument of the reference's functions is accepted and
+changes nothing.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from cvsteer_tpu_torch.features.keypoints import Keypoints
 from cvsteer_tpu_torch.filters.g2 import G2A, G2B, G2C, H2A, H2B, H2C, H2D
+from cvsteer_tpu_torch.filters.g4 import steering_coefficients
 from cvsteer_tpu_torch.ops.cuda_desc import sample_patches, sample_patches_levels
 
 
@@ -48,6 +53,16 @@ def _rotated_grid_coords(keypoints: Keypoints, grid: int, spacing: float):
     ys = keypoints.yx[..., 0:1] + dy
     xs = keypoints.yx[..., 1:2] + dx
     return ys, xs, ct, st
+
+
+def _rotated_grid_samples(
+    basis: torch.Tensor, keypoints: Keypoints, grid: int, spacing: float
+):
+    """(samples [N, S, C], ct, st [N]) of one image's ``basis [C, H, W]``."""
+    samples, ct, st = _rotated_grid_samples_batch(
+        basis[None], Keypoints(*(f[None] for f in keypoints)), grid, spacing
+    )
+    return samples[0], ct[0], st[0]
 
 
 def _rotated_grid_samples_batch(
@@ -97,6 +112,70 @@ def _steer_g2_normalize(samples, ct, st, valid, pi_invariant: bool = False):
     return torch.where(valid[..., None], desc, 0.0)
 
 
+def _steer_g4_normalize(samples, keypoints: Keypoints, pi_invariant: bool = False):
+    """Steer (g4, h4) to each keypoint's theta with the binomial weights
+    (filters.g4.steering_coefficients) and L2-normalize; broadcasts over
+    any leading batch axes (samples [..., S, 11], keypoint fields [...])."""
+    ga, ha = steering_coefficients(keypoints.theta, dtype=samples.dtype, device=samples.device)
+
+    def w(v):
+        return v[..., None]
+
+    g4 = sum(w(ga[i]) * samples[..., i] for i in range(5))
+    h4 = sum(w(ha[i]) * samples[..., 5 + i] for i in range(6))
+    if pi_invariant:  # G4 even under a pi flip, H4 odd: the G2 rule
+        g4, h4 = _canonicalize_pi(g4, h4)
+    desc = torch.cat([g4, h4], dim=-1)
+    norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
+    desc = desc / torch.clamp_min(norm, 1e-12)
+    return torch.where(keypoints.valid[..., None], desc, 0.0)
+
+
+def phase_descriptors(
+    basis: torch.Tensor,
+    keypoints: Keypoints,
+    *,
+    grid: int = 4,
+    spacing: float = 3.0,
+    pi_invariant: bool = False,
+    fp32_sampling: bool = False,
+) -> torch.Tensor:
+    """Descriptors ``[N, grid*grid*2]`` of one image's ``basis [7, H, W]``."""
+    samples, ct, st = _rotated_grid_samples(basis, keypoints, grid, spacing)
+    return _steer_g2_normalize(samples, ct, st, keypoints.valid, pi_invariant=pi_invariant)
+
+
+def phase_descriptors_g4(
+    basis: torch.Tensor,
+    keypoints: Keypoints,
+    *,
+    grid: int = 4,
+    spacing: float = 3.0,
+    pi_invariant: bool = False,
+    fp32_sampling: bool = False,
+) -> torch.Tensor:
+    """4th-order descriptors ``[N, grid*grid*2]`` of one image's ``basis
+    [11, H, W]``: the recipe of :func:`phase_descriptors` with the G4/H4
+    pair (narrower angular tuning)."""
+    samples, _, _ = _rotated_grid_samples(basis, keypoints, grid, spacing)
+    return _steer_g4_normalize(samples, keypoints, pi_invariant=pi_invariant)
+
+
+def phase_descriptors_g4_batch(
+    basis: torch.Tensor,
+    keypoints: Keypoints,
+    *,
+    grid: int = 4,
+    spacing: float = 3.0,
+    pi_invariant: bool = False,
+    fp32_sampling: bool = False,
+) -> torch.Tensor:
+    """Batched :func:`phase_descriptors_g4`: ``basis [B, 11, H, W]``,
+    keypoint fields ``[B, N, ...]`` -> ``[B, N, grid*grid*2]``."""
+    samples, _, _ = _rotated_grid_samples_batch(basis, keypoints, grid, spacing)
+    return _steer_g4_normalize(samples, keypoints, pi_invariant=pi_invariant)
+
+
 def phase_descriptors_batch(
     basis: torch.Tensor,
     keypoints: Keypoints,
@@ -104,6 +183,7 @@ def phase_descriptors_batch(
     grid: int = 4,
     spacing: float = 3.0,
     pi_invariant: bool = False,
+    fp32_sampling: bool = False,
 ) -> torch.Tensor:
     """``basis [B, 7, H, W]``, keypoint fields ``[B, N, ...]`` ->
     descriptors ``[B, N, grid*grid*2]``."""
@@ -123,12 +203,19 @@ def phase_descriptors_levels(
     pi_invariant: bool = False,
 ) -> torch.Tensor:
     """Descriptors of several pyramid levels' keypoints at once: ``bases``
-    one ``[B, 7, H_l, W_l]`` per level, keypoint fields ``[B, N, ...]``
-    holding ``counts[l]`` keypoints of level l after those of the levels
-    before it (level coordinates) -> ``[B, N, grid*grid*2]``, the same
-    values as :func:`phase_descriptors_batch` level by level."""
+    one ``[B, C, H_l, W_l]`` per level (C = 7, the G2/H2 basis, or 11, the
+    G4/H4 one), keypoint fields ``[B, N, ...]`` holding ``counts[l]``
+    keypoints of level l after those of the levels before it (level
+    coordinates) -> ``[B, N, grid*grid*2]``, the same values as
+    :func:`phase_descriptors_batch` (or :func:`phase_descriptors_g4_batch`)
+    level by level."""
+    C = int(bases[0].shape[1])
+    if C not in (7, 11):
+        raise ValueError(f"a basis has 7 channels (G2/H2) or 11 (G4/H4), not {C}")
     ys, xs, ct, st = _rotated_grid_coords(keypoints, grid, spacing)
     samples = sample_patches_levels(bases, ys.contiguous(), xs.contiguous(), counts)
+    if C == 11:
+        return _steer_g4_normalize(samples, keypoints, pi_invariant=pi_invariant)
     return _steer_g2_normalize(
         samples, ct, st, keypoints.valid, pi_invariant=pi_invariant
     )

@@ -1,13 +1,23 @@
 """Multi-scale feature extraction: pyramid -> detector maps -> keypoints +
 phase descriptors (twin of cvsteer_tpu.features.frontend).
 
-The structure is the reference's fused TPU path (_extract_features_tpu),
-on every device: one g2_features_levels call (one kernel C launch on the
-card) produces every level's basis and packed selection maps, top-k runs
-per level on the 3x3-cell table (detect_keypoints_packed), and the
-descriptors of all levels' keypoints are computed together, sampling each
-level's basis (one kernel D launch). The pyramid is kernel B. On a CPU
-tensor the same structure runs with the kernels' plain versions.
+Two structures, as in the reference:
+
+- the fused path (the reference's _extract_features_tpu), for order 2 with
+  the corner score and nms_radius >= 2, on every device: one
+  g2_features_levels call (one kernel C launch on the card) produces every
+  level's basis and packed selection maps, top-k runs per level on the
+  3x3-cell table (detect_keypoints_packed);
+- the generic path (_extract_features_generic) for order 4, the
+  'strength' score and nms_radius < 2: per level the basis (kernel A with
+  the G2 or the G4/H4 bank), the energy coefficients and the score maps in
+  plain PyTorch, then NMS, exact top-k and subpixel refinement
+  (detect_keypoints_cs).
+
+Both sample the descriptors of all levels' keypoints together, each level's
+keypoints from its basis (one kernel D launch, C = 7 or 11; the reference
+samples per level, with the same values). The pyramid is kernel B. On a
+CPU tensor the same structures run with the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -19,8 +29,13 @@ import numpy as np
 import torch
 
 from cvsteer_tpu_torch.features.descriptors import phase_descriptors_levels
-from cvsteer_tpu_torch.features.keypoints import Keypoints, detect_keypoints_packed
+from cvsteer_tpu_torch.features.keypoints import (
+    Keypoints,
+    detect_keypoints_cs,
+    detect_keypoints_packed,
+)
 from cvsteer_tpu_torch.filters import g2 as fg2
+from cvsteer_tpu_torch.filters import g4 as fg4
 from cvsteer_tpu_torch.ops.cuda_frontend import g2_features_levels
 from cvsteer_tpu_torch.ops.pyramid import gaussian_pyramid
 
@@ -28,9 +43,10 @@ from cvsteer_tpu_torch.ops.pyramid import gaussian_pyramid
 class FrontendConfig(NamedTuple):
     """The reference's FrontendConfig, field for field.
 
-    Ported: order 2, score 'corner', nms_radius >= 2 (the packed selection
-    needs at most one NMS survivor per 3x3 cell), upright_desc,
-    desc_pi_invariant, level_capacity_decay. Descriptor sampling is fp32 in
+    ``order`` 2 (G2/H2) or 4 (G4/H4); ``score`` 'corner' (c1 - |(c2, c3)|)
+    or 'strength' (|(c2, c3)|). Order 2 with the corner score and
+    nms_radius >= 2 (at most one NMS survivor per 3x3 cell) takes the fused
+    path, everything else the generic one. Descriptor sampling is fp32 in
     the port whatever ``desc_fp32_sampling`` says (kernel D reads fp32
     corners), so that field changes nothing here."""
 
@@ -82,24 +98,8 @@ class Features(NamedTuple):
 
 
 def _check_config(cfg: FrontendConfig) -> None:
-    if cfg.order == 4:
-        raise NotImplementedError(
-            "G4/H4 features are not ported yet: they need the generic detector "
-            "path (detect_keypoints, detect_keypoints_cs, "
-            "detect_keypoints_premasked) and the G4 descriptors "
-            "(phase_descriptors_g4); the G4/H4 bank itself is ported"
-        )
-    if cfg.order != 2:
+    if cfg.order not in (2, 4):
         raise ValueError(f"order must be 2 or 4, got {cfg.order}")
-    if cfg.score != "corner":
-        raise NotImplementedError(
-            f"score={cfg.score!r} is not ported yet (the generic detector "
-            "path comes with a later PR)"
-        )
-    if cfg.nms_radius < 2:
-        raise NotImplementedError(
-            "nms_radius < 2 needs the generic detector path, not ported yet"
-        )
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,12 +118,46 @@ def extract_features(
     cfg: FrontendConfig = FrontendConfig(),
 ) -> Features:
     """Features of ``images [H, W]`` or ``[B, H, W]`` (any float dtype; the
-    features live on the images' device)."""
+    features live on the images' device). ``bank`` must match ``cfg.order``
+    when given."""
     _check_config(cfg)
-    if bank is None:
-        bank = fg2.g2_bank()
     single = images.dim() == 2
     imgs = (images[None] if single else images).to(torch.float32).contiguous()
+    if cfg.order == 4:
+        bank = fg4.g4_bank() if bank is None else bank
+        feats = _extract_features_generic(
+            imgs, cfg, basis_fn=lambda im: fg4.g4_basis(im, bank),
+            coeff_fn=fg4.energy_coefficients,
+        )
+    elif cfg.score != "corner" or cfg.nms_radius < 2:  # the packed cells need nms_radius >= 2
+        bank = fg2.g2_bank() if bank is None else bank
+        feats = _extract_features_generic(
+            imgs, cfg, basis_fn=lambda im: fg2.g2_basis(im, bank),
+            coeff_fn=fg2.energy_coefficients,
+        )
+    else:
+        feats = _extract_features_fused(imgs, fg2.g2_bank() if bank is None else bank, cfg)
+    if single:
+        feats = Features(*(x[0] for x in feats))
+    return feats
+
+
+def _assemble(kp: Keypoints, desc: torch.Tensor, counts, device) -> Features:
+    """Features from the levels' keypoints one after the other (level
+    coordinates, ``counts[l]`` of level l) and their descriptors."""
+    scale, level = _level_tables(tuple(counts), str(device))
+    return Features(
+        yx=kp.yx * scale[:, None],
+        score=kp.score,
+        theta=kp.theta,
+        level=level.expand(kp.score.shape).clone(),
+        desc=desc,
+        valid=kp.valid,
+    )
+
+
+def _extract_features_fused(imgs: torch.Tensor, bank, cfg: FrontendConfig) -> Features:
+    """The fused path on ``imgs [B, H, W]`` float32."""
     levels = gaussian_pyramid(imgs, cfg.levels)
     maps = g2_features_levels(
         levels, bank.xtaps, bank.ytaps, threshold=cfg.threshold, nms_radius=cfg.nms_radius
@@ -140,15 +174,73 @@ def extract_features(
         grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
         pi_invariant=cfg.desc_pi_invariant,
     )
-    scale, level = _level_tables(counts, str(imgs.device))
-    feats = Features(
-        yx=kp.yx * scale[:, None],
+    return _assemble(kp, desc, counts, imgs.device)
+
+
+def _score_maps(lv_imgs, *, basis_fn, coeff_fn, score: str = "corner"):
+    """(basis, score, ct, st) of one pyramid level ``[B, H, W]``: the front
+    half of the per-level pipeline (also the sharded front-end's)."""
+    basis = basis_fn(lv_imgs)  # [B, K, H, W]
+    c1, c2, c3 = coeff_fn(basis)
+    theta, strength = fg2.dominant_orientation(c2, c3)
+    score_map = fg2.corner_strength(c1, c2, c3) if score == "corner" else strength
+    return basis, score_map, torch.cos(theta), torch.sin(theta)
+
+
+def _level_keypoints(lv_imgs, lvl: int, cfg: FrontendConfig, *, basis_fn, coeff_fn,
+                     approx: bool = False):
+    """(basis, keypoints in level coordinates) of one pyramid level: basis
+    -> score -> NMS, exact top-k and subpixel refinement."""
+    basis, score_map, ctm, stm = _score_maps(
+        lv_imgs, basis_fn=basis_fn, coeff_fn=coeff_fn, score=cfg.score
+    )
+    kp = detect_keypoints_cs(
+        score_map, ctm, stm, max_keypoints=cfg.level_capacity(lvl),
+        nms_radius=cfg.nms_radius, threshold=cfg.threshold, approx=approx,
+    )
+    return basis, kp
+
+
+def _level_features(lv_imgs, lvl: int, cfg: FrontendConfig, *, basis_fn, coeff_fn,
+                    desc_batch_fn, approx: bool = False) -> Features:
+    """One whole pyramid level: basis -> score -> detect -> descriptors
+    (``desc_batch_fn``: phase_descriptors_batch or phase_descriptors_g4_batch,
+    sampling this level alone), coordinates in level-0 pixels."""
+    basis, kp = _level_keypoints(
+        lv_imgs, lvl, cfg, basis_fn=basis_fn, coeff_fn=coeff_fn, approx=approx
+    )
+    kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
+    desc = desc_batch_fn(
+        basis, kp_d, grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
+        pi_invariant=cfg.desc_pi_invariant,
+    )
+    scale = float(2**lvl)
+    return Features(
+        yx=kp.yx * scale,
         score=kp.score,
         theta=kp.theta,
-        level=level.expand(kp.score.shape).clone(),
+        level=torch.full(kp.score.shape, lvl, dtype=torch.int32, device=kp.score.device),
         desc=desc,
         valid=kp.valid,
     )
-    if single:
-        feats = Features(*(x[0] for x in feats))
-    return feats
+
+
+def _extract_features_generic(imgs: torch.Tensor, cfg: FrontendConfig, *, basis_fn,
+                              coeff_fn) -> Features:
+    """The order-agnostic path on ``imgs [B, H, W]`` float32: pyramid ->
+    basis -> energy coefficients -> detector per level, then every level's
+    descriptors in one sampling call. The 2nd-harmonic (c1, c2, c3) mean
+    the same for both orders (filters.g4.energy_coefficients)."""
+    levels = gaussian_pyramid(imgs, cfg.levels)
+    bases, kps = zip(*(
+        _level_keypoints(lv, lvl, cfg, basis_fn=basis_fn, coeff_fn=coeff_fn)
+        for lvl, lv in enumerate(levels)
+    ))
+    counts = tuple(k.capacity for k in kps)
+    kp = Keypoints(*(torch.cat(f, dim=1) for f in zip(*kps)))
+    kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
+    desc = phase_descriptors_levels(
+        bases, kp_d, counts, grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
+        pi_invariant=cfg.desc_pi_invariant,
+    )
+    return _assemble(kp, desc, counts, imgs.device)

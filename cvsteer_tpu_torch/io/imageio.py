@@ -1,11 +1,14 @@
 """Image IO: grayscale read and 8-bit PNG write (the counterpart of
 cvsteer_tpu.io.imageio).
 
-8-bit PNG (grayscale, gray+alpha, RGB, RGBA; not interlaced) and binary
-PGM decode with numpy and zlib alone, so sequences read on machines that
-have neither OpenCV nor PIL. Other formats go to OpenCV or PIL when one is
-installed. All reads return float32 grayscale in [0, 255]. Writes are
-8-bit grayscale PNG, also numpy and zlib alone.
+8-bit PNG (grayscale, gray+alpha, RGB, RGBA; not interlaced) is read and
+written by the port's zlib-only C codec (io.native_codec, built at first
+use; a build that fails raises with the compiler's message), so sequences
+read on machines that have neither OpenCV nor PIL, and a thread pool
+decodes in parallel. :func:`_decode_png` and :func:`_encode_png` are its
+plain numpy + zlib versions, which the tests hold it to. Binary PGM is read
+with numpy. Other formats (JPEG among them) go to OpenCV or PIL when one is
+installed. All reads return float32 grayscale in [0, 255].
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import zlib
 from typing import Optional
 
 import numpy as np
+
+from cvsteer_tpu_torch.io import native_codec
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -28,6 +33,8 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     prev = np.zeros(stride, np.int32)
     for y in range(h):
         ftype, line = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if ftype > 4:
+            raise ValueError(f"PNG filter type {ftype}")
         if ftype == 0:
             cur = line
         elif ftype == 2:
@@ -53,6 +60,8 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def _decode_png(data: bytes) -> Optional[np.ndarray]:
+    """The codec's plain version: 8-bit PNG bytes -> float32 gray, colour
+    by ITU-R BT.601 luma in float32, rounded half to even."""
     pos, chunks, hdr = 8, [], None
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
@@ -104,27 +113,31 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
     )
 
 
-def imwrite_u8(path: str, img: np.ndarray) -> None:
-    """Write an 8-bit grayscale ``[H, W]`` image as PNG. Every scanline
-    uses filter 0 (None), which the reader above undoes without a
-    per-pixel loop; deflate runs at level 1, OpenCV's default PNG setting,
-    which trades a little file size for encoding speed."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"imwrite_u8 writes PNG only, got {path!r}")
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"imwrite_u8: expected [H, W], got {img.shape}")
+def _encode_png(img: np.ndarray) -> bytes:
+    """The codec writer's plain version: an 8-bit gray ``[H, W]`` image as
+    PNG bytes, filter 0 (None) on every scanline, deflate level 1."""
     h, w = img.shape
     raw = np.zeros((h, w + 1), np.uint8)
     raw[:, 1:] = img
-    data = (
+    return (
         _PNG_SIG
         + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
         + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
         + _png_chunk(b"IEND", b"")
     )
-    with open(path, "wb") as f:
-        f.write(data)
+
+
+def imwrite_u8(path: str, img: np.ndarray) -> None:
+    """Write an 8-bit grayscale ``[H, W]`` image as PNG (the codec). Every
+    scanline uses filter 0 (None); deflate runs at level 1, OpenCV's default
+    PNG setting, which trades a little file size for encoding speed."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"imwrite_u8 writes PNG only, got {path!r}")
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"imwrite_u8: expected [H, W], got {img.shape}")
+    if not native_codec.imwrite_png_gray(path, img):
+        raise OSError(f"imwrite_u8: cannot write {path!r}")
 
 
 def imread_gray_f32(path: str) -> Optional[np.ndarray]:
@@ -135,13 +148,13 @@ def imread_gray_f32(path: str) -> Optional[np.ndarray]:
     except OSError:
         return None
     img = None
-    try:
-        if data.startswith(_PNG_SIG):
-            img = _decode_png(data)
-        elif data.startswith(b"P5"):
+    if data.startswith(_PNG_SIG):
+        img = native_codec.imdecode_gray(data)
+    elif data.startswith(b"P5"):
+        try:
             img = _decode_pgm(data)
-    except (ValueError, IndexError, zlib.error, struct.error):
-        img = None
+        except (ValueError, IndexError):
+            img = None
     if img is not None:
         return img
     try:

@@ -30,6 +30,13 @@
 // contiguously. A cloud whose window would not fit the warp's buffer reads
 // its corners from device memory directly: any coordinates stay right.
 //
+// Channels: the G2/H2 basis has C = 7, the G4/H4 basis C = 11 (the TPU ran
+// the same Pallas kernel with 16 lanes a sample for it). The window buffer
+// is dynamic shared memory sized by C, 15 rows x 24 columns x C floats a
+// warp rounded up to 128 floats (40 KB a block at C = 7, 62 KB at C = 11,
+// above the 48 KB default, so the launch opts in), so both bases' 15x15
+// clouds stage; C is at most kMaxC.
+//
 // Bits: the corner expressions and their order are the plain version's
 // (one rounding per operation, --fmad=false).
 #include <stdint.h>
@@ -42,7 +49,9 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxLevels = 16;
 constexpr int kMaxS = 64;
-constexpr int kWindow = 2560;  // floats of window per warp: 15 rows x 24 columns x 7 channels
+constexpr int kMaxC = 16;
+// floats of window per warp: 15 rows x 24 columns x C, rounded up to 128
+constexpr int window_floats(int c) { return (15 * 24 * c + 127) / 128 * 128; }
 
 struct DescLevels {
     const float* basis[kMaxLevels];
@@ -68,8 +77,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __global__ void __launch_bounds__(kThreads)
 desc_sample_kernel(const __grid_constant__ DescLevels L, const float* __restrict__ ys,
                    const float* __restrict__ xs, float* __restrict__ out, int B, int C, int K,
-                   int S) {
-    __shared__ __align__(16) float window[kWarps][kWindow];
+                   int S, int per_warp) {
+    extern __shared__ __align__(16) float window[];  // kWarps x per_warp floats
     __shared__ int corner_y[kWarps][kMaxS], corner_x[kWarps][kMaxS];
     __shared__ float weight_y[kWarps][kMaxS], weight_x[kWarps][kMaxS];
 
@@ -116,8 +125,8 @@ desc_sample_kernel(const __grid_constant__ DescLevels L, const float* __restrict
     const int xa = vec ? (xlo & ~3) : xlo;
     const int wd = vec ? ((xhi + 4) & ~3) - xa : xhi + 1 - xa;  // window row width
     const int ht = yhi - ylo + 1;
-    const bool staged = ht * wd * C <= kWindow;
-    float* win = window[warp];
+    const bool staged = ht * wd * C <= per_warp;
+    float* win = window + warp * per_warp;
     if (staged) {
         const int per_row = vec ? wd / 4 : wd;
         const int n = C * ht * per_row;
@@ -171,7 +180,7 @@ desc_sample_kernel(const __grid_constant__ DescLevels L, const float* __restrict
 CVS_EXPORT int cvs_desc_sample(const long long* bases, const int* hw, const int* counts,
                                int n_levels, const float* ys, const float* xs, float* out, int b,
                                int c, int k, int s, void* stream) {
-    if (n_levels < 1 || n_levels > kMaxLevels || b < 1 || c < 1 || k < 1 || s < 1 ||
+    if (n_levels < 1 || n_levels > kMaxLevels || b < 1 || c < 1 || c > kMaxC || k < 1 || s < 1 ||
         s > kMaxS) {
         return (int)cudaErrorInvalidValue;
     }
@@ -190,6 +199,12 @@ CVS_EXPORT int cvs_desc_sample(const long long* bases, const int* hw, const int*
     L.first_kp[n_levels] = first;
     const long long n_kp = (long long)b * k;
     const unsigned blocks = (unsigned)((n_kp + kWarps - 1) / kWarps);
-    desc_sample_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(L, ys, xs, out, b, c, k, s);
+    static size_t granted = 48 * 1024;
+    const int per_warp = window_floats(c);
+    const size_t bytes = sizeof(float) * kWarps * per_warp;
+    const cudaError_t e = allow_smem(desc_sample_kernel, bytes, granted);
+    if (e != cudaSuccess) return (int)e;
+    desc_sample_kernel<<<blocks, kThreads, bytes, (cudaStream_t)stream>>>(L, ys, xs, out, b, c, k,
+                                                                         s, per_warp);
     return (int)cudaGetLastError();
 }

@@ -26,6 +26,7 @@ from cvsteer_tpu_torch.ops.cuda_frontend import _MAX_LEVELS, _host, _on_cpu, _re
 from cvsteer_tpu_torch.ops.interp import bilinear_sample_channels_last
 
 _MAX_SAMPLES = 64  # kernel D: samples per keypoint
+_MAX_CHANNELS = 16  # kernel D: basis channels (7 for G2/H2, 11 for G4/H4)
 
 
 def sample_patches_plain(
@@ -57,7 +58,8 @@ def sample_patches_levels(
     ``bases``: each level's basis ``[B, C, H_l, W_l]``; ``ys/xs [B, K, S]``
     hold the keypoints of level 0, then those of level 1, ..., ``counts[l]``
     of level l (summing to K) -> ``[B, K, S, C]``, each level's keypoints
-    sampled from its basis. On the card: one launch of kernel D."""
+    sampled from its basis (C <= 16: the G2/H2 basis's 7 channels or the
+    G4/H4 basis's 11). On the card: one launch of kernel D."""
     bases, counts = list(bases), [int(c) for c in counts]
     if len(bases) != len(counts) or sum(counts) != ys.shape[-2]:
         raise ValueError(f"sample_patches: counts {counts} for {len(bases)} levels, "
@@ -73,7 +75,8 @@ def sample_patches_levels(
                          f"{len(bases)} levels")
     b, k, s = ys.shape
     c = bases[0].shape[1]
-    if s > _MAX_SAMPLES or any(t.dim() != 4 or t.shape[:2] != (b, c) for t in bases):
+    if s > _MAX_SAMPLES or c > _MAX_CHANNELS or any(
+            t.dim() != 4 or t.shape[:2] != (b, c) for t in bases):
         raise ValueError(f"sample_patches: bases {[tuple(t.shape) for t in bases]}, "
                          f"ys {tuple(ys.shape)}")
     out = torch.empty((b, k, s, c), dtype=torch.float32, device=ys.device)

@@ -57,9 +57,21 @@ fleet copies a stream's row and from which it copies it back. A fleet row
 has no in-step ground controller: it takes the host ground path
 (:meth:`DeviceVO._ground_prior`), as in the reference.
 
-Not ported yet (ROADMAP.md): chunked stepping (the reference's
-``_device_step_n_body``, ``issue_chunk``, ``complete_chunk``) and closure
-deferral inside a chunk (``_defer_closure``, ``_pending_closure``).
+Chunked stepping (:meth:`DeviceVO.issue_chunk`, :meth:`DeviceVO.
+complete_chunk`) runs N frames in one replay of a third graph, **C**, and
+one fetch. The reference's chunk is a ``lax.scan`` of its step, with a
+``lax.cond`` around each frame's promotion. C unrolls the N frames: each
+is T, then P with every write masked by T's promotion flag (the fleet's
+masked promotion at S = 1), so P's device time is paid on every frame.
+Each frame's PnP starts from the ring's newest pose, which is the
+sequential engine's start with the motion model off. A frame that loses
+tracking, and every frame after it, leaves the map as it was (the host
+stops there and steps those frames one at a time); with the speed clamp
+on (``speed_prior_band`` hi > 0, no ground prior) so does every frame
+after the chunk's first promotion, whose host event may rewrite the map
+before the next frame may read it. Closure events found
+inside the chunk run at its end (``_defer_closure``,
+``_pending_closure``).
 """
 from __future__ import annotations
 
@@ -535,10 +547,12 @@ def _track_half(m: DeviceMap, io: _IO, *, kf_max_gap, loop_min_gap, loop_cands,
 
 
 def _promote_half(m: DeviceMap, io: _IO, *, iterations, huber_delta, tri_angle,
-                  ground_target) -> None:
+                  ground_target, when=None) -> None:
     """P: the promotion of the frame in ``io`` with T's outputs, then the
     ground controller when the map carries one, written in place into
-    ``m``'s buffers; the fetch row into ``io.p_out``."""
+    ``m``'s buffers; the fetch row into ``io.p_out``. ``when`` (a 0-dim
+    bool tensor): keep the writes to the map only where it is true (C's
+    masked P; the fetch row is then read only where it is true)."""
     m2 = _promote(
         m, io.uv_new, io.desc, io.fvalid, io.idx, io.obs_pre, io.R, io.t,
         io.sig_new if m.sig is not None else None,
@@ -550,12 +564,48 @@ def _promote_half(m: DeviceMap, io: _IO, *, iterations, huber_delta, tri_angle,
         g_r = torch.ones((), dtype=io.R.dtype, device=io.R.device)
     for dst, src in zip(m, m2):
         if dst is not None and src is not dst:
-            dst.copy_(src)
+            dst.copy_(src if when is None else torch.where(when, src, dst))
     obs_new = m.kf_obs[-1]
     io.p_out.copy_(torch.cat([
         _bits(m.kf_R), _bits(m.kf_t), obs_new, m.lm_gen[obs_new.clamp_min(0).long()],
         m.lm_valid.sum(dtype=torch.int32)[None], _bits(io.ground_h), _bits(g_r),
     ]))
+
+
+class _ChunkIO(NamedTuple):
+    """C's static buffers for a chunk of n frames (n leads every shape)."""
+
+    yx: torch.Tensor  # [n, N, 2] in
+    desc: torch.Tensor  # [n, N, D]
+    fvalid: torch.Tensor  # [n, N]
+    t_out: torch.Tensor  # [n, 17 + 2 M] int32: each frame's T row
+    p_out: torch.Tensor  # [n, 12 W + 2 N + 3] int32: each frame's P row (read where promoted)
+
+
+def _chunk_half(m: DeviceMap, io: _IO, ch: _ChunkIO, *, track, promote,
+                stop_at_keyframe: bool = False) -> None:
+    """C: the chunk's frames one after the other, each T then P masked by
+    T's promotion flag, the PnP start the ring's newest pose. From the
+    first frame that loses tracking (the lost flag, or a pose that is not
+    finite: the host's test) on, a frame changes nothing in the map: its
+    ``since_kf`` count is put back and its P is masked out. With
+    ``stop_at_keyframe`` the frames after the first promotion change
+    nothing either (the speed clamp's host event may rewrite that
+    promotion before the next frame may use it)."""
+    alive = torch.ones((), dtype=torch.bool, device=m.X.device)
+    for i in range(ch.yx.shape[0]):
+        f = io._replace(yx=ch.yx[i], desc=ch.desc[i], fvalid=ch.fvalid[i], t_out=ch.t_out[i],
+                        p_out=ch.p_out[i])
+        f.pose.copy_(torch.cat([m.kf_R[-1].reshape(9), m.kf_t[-1]]))
+        since = m.since_kf.clone()
+        _track_half(m, f, **track)
+        ok = ~f.t_out[15].to(torch.bool) & torch.isfinite(f.R).all() & torch.isfinite(f.t).all()
+        alive = alive & ok
+        m.since_kf.copy_(torch.where(alive, m.since_kf, since))
+        promoted = alive & f.t_out[14].to(torch.bool)
+        _promote_half(m, f, **promote, when=promoted)
+        if stop_at_keyframe:
+            alive = alive & ~promoted
 
 
 def _track_row(h) -> StepOut:
@@ -580,6 +630,12 @@ def _promote_row(out: StepOut, h, W: int, N: int) -> StepOut:
         obs_new=h[12 * W: 12 * W + N].copy(), obs_gen=h[12 * W + N: 12 * W + 2 * N].copy(),
         lm_count=int(h[12 * W + 2 * N]),
     )
+
+
+def _speed_clamp_on(cfg: VOConfig) -> bool:
+    """The kinematic band can correct a promotion on the host
+    (vo.apply_speed_prior): hi > 0 and no ground prior, which wins."""
+    return cfg.speed_prior_band[1] > 0 and cfg.ground_height_m <= 0
 
 
 def _step_kwargs(cfg: VOConfig):
@@ -690,6 +746,10 @@ class DeviceVO:
         self._lm_gen = np.zeros(config.max_landmarks, np.int32)
         self.closures_accepted = 0
         self._closure_cooldown = 0  # promotions until the next closure event
+        # chunks (complete_chunk) run closure events at their end
+        self._defer_closure = False
+        self._pending_closure = None
+        self._chunks = {}  # chunk length -> (_ChunkIO, C's graph or None, host rows)
 
     @property
     def initialized(self) -> bool:
@@ -953,13 +1013,134 @@ class DeviceVO:
 
     def fetch_promote(self, out: StepOut) -> StepOut:
         """``out`` with P's fetched results (waits for the copy)."""
+        return self._promoted(out, self._wait_fetch(self._p_host))
+
+    def _promoted(self, out: StepOut, h) -> StepOut:
+        """``out`` with a fetched P row ``h`` (``_IO.p_out``'s layout)."""
         cfg = self.state.config
-        W = cfg.window
-        N = self._io.idx.shape[0]
-        h = self._wait_fetch(self._p_host)
-        return _promote_row(out, h, W, N)._replace(
+        return _promote_row(out, h, cfg.window, self._io.idx.shape[0])._replace(
             ground_r=float(h[-1:].view(np.float32)[0]) if cfg.ground_height_m > 0 else None,
         )
+
+    # ------------------------------------------------------------------
+    # chunked stepping
+
+    def _chunk(self, n: int, N: int, D: int):
+        """C's buffers and host rows for chunks of ``n`` frames, made (and
+        on a card C captured, after a warm-up on clones) at the first chunk
+        of that length."""
+        if n in self._chunks:
+            return self._chunks[n]
+        dev, io = self.device, self._io
+        i32, pin = torch.int32, dev.type == "cuda"
+        ch = _ChunkIO(
+            yx=torch.zeros((n, N, 2), device=dev), desc=torch.zeros((n, N, D), device=dev),
+            fvalid=torch.zeros((n, N), dtype=torch.bool, device=dev),
+            t_out=torch.zeros((n,) + tuple(io.t_out.shape), dtype=i32, device=dev),
+            p_out=torch.zeros((n,) + tuple(io.p_out.shape), dtype=i32, device=dev),
+        )
+        hosts = (torch.zeros(tuple(ch.t_out.shape), dtype=i32, pin_memory=pin),
+                 torch.zeros(tuple(ch.p_out.shape), dtype=i32, pin_memory=pin))
+        graph = None
+        if pin and self.capture:
+            track, promote = _step_kwargs(self.state.config)
+            stop = _speed_clamp_on(self.state.config)
+            m_w = DeviceMap(*(None if a is None else a.clone() for a in self.map))
+            io_w = _IO(*(a.clone() for a in io))
+            ch_w = _ChunkIO(*(a.clone() for a in ch))
+            for dst, f in zip(ch_w[:3], (self.state.keyframes[-1].features.yx,
+                                          self.state.keyframes[-1].features.desc,
+                                          self.state.keyframes[-1].features.valid)):
+                dst.copy_(f.expand_as(dst))
+            with hostvo._span(self.state, "capture"):
+                (graph,) = _capture_graphs(
+                    dev, lambda: _chunk_half(m_w, io_w, ch_w, track=track, promote=promote,
+                                             stop_at_keyframe=stop),
+                    (lambda: _chunk_half(self.map, io, ch, track=track, promote=promote,
+                                         stop_at_keyframe=stop),),
+                )
+            self.captures += 1
+        self._chunks[n] = (ch, graph, hosts)
+        return self._chunks[n]
+
+    def issue_chunk(self, yx, desc, fvalid) -> list:
+        """Step ``n`` frames at once: ``yx [n, N, 2]``, ``desc [n, N, D]``,
+        ``fvalid [n, N]`` (a leading chunk axis, on the engine's device),
+        in one replay of graph C (eagerly on the CPU) and one fetch; returns
+        the n frames' fetched StepOut rows for :meth:`complete_chunk`.
+
+        The map advances at once; each frame's PnP starts from the ring's
+        newest pose, so the chunk is the sequential engine step for step
+        with the motion model off, which it requires. Needs an initialized
+        engine (``self.map`` not None). C is captured once per chunk length
+        (:attr:`captures`)."""
+        st = self.state
+        cfg = st.config
+        if cfg.motion_model:
+            raise ValueError("chunked stepping needs motion_model off: the chunk cannot read "
+                             "the host trajectory a prediction needs")
+        if self.map is None:
+            raise ValueError("issue_chunk needs an initialized engine: bootstrap through "
+                             "process_frame")
+        n = int(yx.shape[0])
+        ch, graph, (t_host, p_host) = self._chunk(n, *self._bufs.kf_desc.shape)
+        for dst, src in zip(ch[:3], (yx, desc, fvalid)):
+            dst.copy_(src)
+        with hostvo._span(st, "chunk"):
+            if graph is not None:
+                graph.replay()
+            else:
+                track, promote = _step_kwargs(cfg)
+                with _step_math(self.device):
+                    _chunk_half(self.map, self._io, ch, track=track, promote=promote,
+                                stop_at_keyframe=_speed_clamp_on(cfg))
+            t_host.copy_(ch.t_out, non_blocking=True)
+            self._start_fetch(ch.p_out, p_host)
+            p_rows = self._wait_fetch(p_host)
+            t_rows = t_host.numpy()
+        self._host_dirty = True
+        rows = []
+        for t_row, p_row in zip(t_rows, p_rows):
+            r = _track_row(t_row)
+            rows.append(self._promoted(r, p_row) if r.promoted else r)
+        return rows
+
+    def complete_chunk(self, frames, fetched) -> int:
+        """The host mirrors' tail of a fetched chunk: :meth:`complete` on
+        each row in order; returns the number of rows consumed, after which
+        the caller steps ``frames[done:]`` one at a time (process_frame).
+        ``frames`` indexes the chunk's per-frame Features, or materializes
+        the rows it is asked for (``materialize``, as _LazyFeatureRows):
+        only promoted rows need theirs.
+
+        It stops before a row that lost tracking (C left the map as it was
+        from that row on) and, with the speed clamp on, after the first
+        promoted row (C left the map as it was after that row, whose host
+        event may rewrite it). A closure event found inside the chunk runs
+        at its end, on a settled state (the reference's _pending_closure;
+        here also when the chunk stops early)."""
+        need = [i for i, r in enumerate(fetched) if r.promoted]
+        mat = (frames.materialize(need) if hasattr(frames, "materialize")
+               else {i: frames[i] for i in need})
+        stop = _speed_clamp_on(self.state.config)
+        done = len(fetched)
+        self._defer_closure = True
+        try:
+            for i, row in enumerate(fetched):
+                lost = row.lost or not (np.isfinite(row.R).all() and np.isfinite(row.t).all())
+                if self.map is None or lost:
+                    done = i
+                    break
+                self.complete(mat.get(i), row)
+                if stop and row.promoted:
+                    done = i + 1
+                    break
+        finally:
+            self._defer_closure = False
+        pend, self._pending_closure = self._pending_closure, None
+        if pend is not None and self.map is not None:
+            self._closure(pend)
+        return done
 
     def complete(self, feats: Features, fetched: StepOut) -> None:
         """Host-mirror tail of the step from a fetched result."""
@@ -1045,7 +1226,10 @@ class DeviceVO:
             self._closure_cooldown -= 1
         elif closure_gate(st, *cand, min_gap=cfg.loop_min_gap,
                           threshold=cfg.loop_signature_threshold):
-            self._closure(cand)
+            if self._defer_closure:  # inside a chunk: at its end, on a settled state
+                self._pending_closure = cand
+            else:
+                self._closure(cand)
 
     def _closure(self, candidates=None) -> None:
         """A closure event: sync the device state down, run close_loops (or
@@ -1146,9 +1330,7 @@ class DeviceVO:
         b = float(np.linalg.norm(-kf.R.T @ kf.t + prev.R.T @ prev.t))
         med = hostvo.median_speed(st)
         lo, hi = cfg.speed_prior_band
-        if cfg.ground_height_m > 0:
-            hi = 0.0  # the absolute ground reference wins (vo.apply_speed_prior)
-        if hi > 0 and med is not None and not (lo * med * gap <= b <= hi * med * gap):
+        if _speed_clamp_on(cfg) and med is not None and not (lo * med * gap <= b <= hi * med * gap):
             self.sync_host()
             hostvo.apply_speed_prior(st, fresh_ids=hostvo._fresh_ids_of_last_kf(st))
             self._upload()

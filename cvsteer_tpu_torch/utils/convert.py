@@ -1,7 +1,7 @@
 """Carry the reference package's parameters and state into the port.
 
 The system has no weights: its parameters are tap banks and configs, its
-per-frame state is a Features set, the VO engines carry a keyframed
+per-frame state is a Features set (from Keypoints), the VO engines carry a keyframed
 VOState (the device engine a DeviceMap beside it, the fleet a stacked
 DeviceMap and, pipelined, a _FleetAux) from frame to frame, and
 loop closure optimizes Poses/PoseGraph and Sim3/Sim3Graph. These helpers take the reference
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from cvsteer_tpu_torch.features.frontend import Features, FrontendConfig
+from cvsteer_tpu_torch.features.keypoints import Keypoints
 from cvsteer_tpu_torch.filters.g2 import G2Bank
 from cvsteer_tpu_torch.filters.g4 import G4Bank
 from cvsteer_tpu_torch.filters.taps import SeparableBank
@@ -67,6 +68,23 @@ def features(f, device="cuda") -> Features:
         desc=t(f.desc, torch.float32),
         valid=t(f.valid, torch.bool),
     )
+
+
+def keypoints(k, device="cuda") -> Keypoints:
+    """A reference Keypoints -> the port's tensors on ``device``."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return Keypoints(yx=t(k.yx, torch.float32), score=t(k.score, torch.float32),
+                     theta=t(k.theta, torch.float32), valid=t(k.valid, torch.bool))
+
+
+def checkpoint_tree(tree) -> dict:
+    """A checkpoint tree (utils.checkpoint._state_to_tree's nested dict, of
+    either package, leaves of any array type) with numpy leaves: the form
+    both packages' ``_tree_to_state`` read, so a state crosses either way."""
+    return {k: checkpoint_tree(v) if isinstance(v, dict) else np.array(v)
+            for k, v in tree.items()}
 
 
 def intrinsics(k) -> Intrinsics:

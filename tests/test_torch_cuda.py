@@ -1135,3 +1135,152 @@ def test_torch_cuda_fleet_ring_hands_back_each_tick(serve_frames, depth):
     for a, b in zip(got, want):
         assert [kf.index for kf in a.keyframes] == [kf.index for kf in b.keyframes]
         np.testing.assert_array_equal(a.poses()[1], b.poses()[1])
+
+
+# ---------------------------------------------------------------------------
+# The generic feature path: kernel D at the G4/H4 basis's 11 channels, and
+# the device engine's chunk graph C
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C,S", [(11, 16), (11, 40), (16, 16)])
+def test_torch_cuda_sample_patches_levels_wide_bit_equal(cuda, C, S):
+    """Kernel D with 11 channels (the G4/H4 basis; its window is sized by
+    C) and with 16, the most it takes: ragged levels, clouds clipped at the
+    corners and edges, scattered samples, bit for bit against the plain
+    version; 17 channels raise."""
+    shapes = [(40, 64), (61, 83), (16, 21), (3, 5), (1, 1)]
+    counts = [37, 21, 0, 11, 3]
+    bases = [torch.from_numpy(_texture((2, C) + s, seed=5 + i)).to(cuda) for i, s in enumerate(shapes)]
+    ys, xs = _corner_clouds(cuda, shapes, counts, S, seed=6)
+    got = cd.sample_patches_levels(bases, ys, xs, counts)
+    want = cd.sample_patches_levels_plain(bases, ys, xs, counts)
+    assert got.shape == (2, sum(counts), S, C) and torch.equal(got, want)
+    with pytest.raises(ValueError):
+        wide = [torch.zeros((2, 17) + s, device=cuda) for s in shapes]
+        cd.sample_patches_levels(wide, ys, xs, counts)
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(order=4), dict(score="strength"), dict(order=4, nms_radius=1)],
+                         ids=["g4", "g2_strength", "g4_nms1"])
+def test_torch_cuda_extract_features_generic_equals_plain(cuda, cfg_kw):
+    """The generic path on the card equals the same path with every kernel
+    replaced by its plain version (chip_smoke.plain_kernels), field for
+    field and bit for bit; one call launches B′ once, A once per level and
+    D′ once."""
+    import chip_smoke
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig, extract_features
+
+    cfg = FrontendConfig(**cfg_kw)
+    x = torch.from_numpy(_texture((3, 120, 160), seed=8)).to(cuda)
+    kernels.reset_launch_counts()
+    got = extract_features(x, cfg=cfg)
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    assert (n["pyr_down"], n["filter_bank"], n["desc_sample"]) == (1, cfg.levels, 1)
+    with chip_smoke.plain_kernels():
+        want = extract_features(x, cfg=cfg)
+    assert int(got.valid.sum()) > 300
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+def _chunk_run(frames, chunk, cfg=None):
+    """(sequential DeviceVO, chunked DeviceVO) over the feature rows; one
+    chunk length, so C is captured once."""
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+
+    cfg = cfg or VOConfig()
+    seq, vo = DeviceVO(cfg), DeviceVO(cfg)
+    for f in frames:
+        seq.process_frame(f)
+    k = 0
+    while k < len(frames):
+        if vo.map is None or len(frames) - k < chunk:  # bootstrap, or a short tail
+            vo.process_frame(frames[k])
+            k += 1
+            continue
+        span = chunk
+        part = frames[k:k + span]
+        rows = vo.issue_chunk(*(torch.stack([getattr(f, a) for f in part])
+                                for a in ("yx", "desc", "valid")))
+        for j in range(vo.complete_chunk(part, rows), span):
+            vo.process_frame(part[j])
+        k += span
+    return seq, vo
+
+
+def test_torch_cuda_vo_chunk_graph_equals_sequential_and_eager(cuda):
+    """Graph C: 32 rendered frames in chunks of 4 give the sequential
+    engine's keyframes and poses bit for bit; the engine holds 3 graphs;
+    C's replay equals the same chunk run eagerly from the same state."""
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam import vo_device as tvd
+
+    seq_r = PlanesSequence(n_frames=32)
+    imgs = torch.from_numpy(np.stack([seq_r.render(k) for k in range(32)])).to(cuda)
+    batch = extract_features(imgs)
+    frames = [Features(*(f[k] for f in batch)) for k in range(32)]
+    seq, vo = _chunk_run(frames, 4)
+    a, b = seq.finalize(), vo.finalize()
+    assert [kf.index for kf in a.keyframes] == [kf.index for kf in b.keyframes]
+    assert len(b.keyframes) >= 3 and vo.captures == 3
+    for (fa, Ra, ta), (fb, Rb, tb) in zip(a.trajectory, b.trajectory):
+        assert fa == fb and np.array_equal(Ra, Rb) and np.array_equal(ta, tb)
+
+    ch, graph, _ = vo._chunks[4]
+    live = [t for t in vo.map if t is not None] + list(vo._io) + list(ch)
+    snap = [t.clone() for t in live]
+
+    def run(eager):
+        for dst, src in zip(live, snap):
+            dst.copy_(src)
+        if eager:
+            track, promote = tvd._step_kwargs(vo.state.config)
+            with tvd._step_math(vo.device):
+                tvd._chunk_half(vo.map, vo._io, ch, track=track, promote=promote)
+        else:
+            graph.replay()
+        torch.cuda.synchronize()
+        return [t.clone() for t in live]
+
+    for e, r in zip(run(True), run(False)):
+        assert torch.equal(e, r)
+
+
+def test_torch_cuda_vo_chunk_graph_with_speed_clamp_equals_sequential(cuda, monkeypatch):
+    """Graph C with the speed clamp on (speed_prior_band (0.9, 1.1),
+    keyframes at most 2 frames apart, chunks of 8: C leaves the map as it
+    was after a chunk's first promotion): the clamp fires on the same
+    frames as in the sequential engine, and the keyframes and poses are
+    the sequential engine's bit for bit."""
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam import vo as hostvo
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+
+    fired = []
+    apply = hostvo.apply_speed_prior
+
+    def spy(state, fresh_ids=None):
+        hit = apply(state, fresh_ids=fresh_ids)
+        if hit:
+            fired.append((id(state), state.frame_count))
+        return hit
+    monkeypatch.setattr(hostvo, "apply_speed_prior", spy)
+    seq_r = PlanesSequence(n_frames=32)
+    imgs = torch.from_numpy(np.stack([seq_r.render(k) for k in range(32)])).to(cuda)
+    batch = extract_features(imgs)
+    frames = [Features(*(f[k] for f in batch)) for k in range(32)]
+    seq, vo = _chunk_run(frames, 8, VOConfig(speed_prior_band=(0.9, 1.1), kf_max_gap=2))
+    by = {id(seq.state): [], id(vo.state): []}
+    for key, frame in fired:
+        by[key].append(frame)
+    assert by[id(seq.state)] and by[id(seq.state)] == by[id(vo.state)]
+    a, b = seq.finalize(), vo.finalize()
+    assert [kf.index for kf in a.keyframes] == [kf.index for kf in b.keyframes]
+    assert vo.captures == 3
+    for (fa, Ra, ta), (fb, Rb, tb) in zip(a.trajectory, b.trajectory):
+        assert fa == fb and np.array_equal(Ra, Rb) and np.array_equal(ta, tb)

@@ -117,14 +117,6 @@ def test_torch_extract_features_equals_per_level_composition(cfg):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize(
-    "cfg", [FrontendConfig(order=4), FrontendConfig(score="strength"), FrontendConfig(nms_radius=1)]
-)
-def test_torch_extract_features_refuses_unported_options(cfg):
-    with pytest.raises(NotImplementedError):
-        extract_features(torch.zeros((32, 32)), cfg=cfg)
-
-
 @pytest.mark.parametrize("ratio,mutual", [(0.8, True), (0.95, True), (1.0, False)])
 def test_torch_match_descriptors_identical_indices(ratio, mutual):
     rng = np.random.default_rng(7)

@@ -70,24 +70,13 @@ def test_torch_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
 
 
 def test_torch_cli_vo_refuses_unported_modes(tmp_path):
+    """Every mode of cli_vo is ported (--checkpoint-dir too:
+    tests/test_torch_checkpoint.py); the card is the default device."""
     from cvsteer_tpu_torch.cli_vo import main
 
-    for engine in ("host", "device"):
-        for inputs in (str(FIXTURE), f"{FIXTURE},{FIXTURE}"):  # one stream, or serving
-            with pytest.raises(NotImplementedError, match="checkpoint"):
-                main(["--input", inputs, "--checkpoint-dir", str(tmp_path), "--engine", engine])
     if not torch.cuda.is_available():  # the card is the default: refuse without one
         assert main(["--input", str(FIXTURE), "--engine", "device"]) == 2
         assert main(["--input", f"{FIXTURE},{FIXTURE}", "--engine", "device"]) == 2
-
-
-def test_torch_features_g4_refusal_names_what_is_missing():
-    """G4 features raise, naming the generic detector path and the G4
-    descriptors that are still to port (the G4/H4 bank is ported)."""
-    from cvsteer_tpu_torch.features.frontend import FrontendConfig, extract_features
-
-    with pytest.raises(NotImplementedError, match="generic detector path.*phase_descriptors_g4"):
-        extract_features(torch.zeros((32, 32)), cfg=FrontendConfig(order=4))
 
 
 @pytest.mark.parametrize(

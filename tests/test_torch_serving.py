@@ -16,8 +16,8 @@ tests/test_vo_device.py:145, 173; tests/test_cli_vo.py:317) on the port:
    run in a child process with ``MKL_CBWR=COMPATIBLE``: MKL's float32 GEMM
    otherwise rounds by the operands' memory alignment, so two identical
    streams whose buffers sit differently could part at 1e-7 on the CPU and
-   the window BA would carry it on. The refusals: ``--checkpoint-dir``
-   with several inputs, and no GPU without ``--device cpu``.
+   the window BA would carry it on. The refusal: no GPU without ``--device
+   cpu``. (Serving with ``--checkpoint-dir``: tests/test_torch_checkpoint.py.)
 """
 
 import os
@@ -26,7 +26,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 import test_vo as ref  # the reference test's synthetic world
@@ -157,7 +156,5 @@ def test_torch_cli_vo_serving_refusals(tmp_path):
     from cvsteer_tpu_torch.cli_vo import main
 
     two = ["--input", f"{FIXTURE},{FIXTURE}", *CLI_SET]
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        main(two + ["--device", "cpu", "--checkpoint-dir", str(tmp_path / "ck")])
     if not torch.cuda.is_available():
         assert main(two + ["--engine", "device"]) == 2  # no card: --device cpu must be asked for
