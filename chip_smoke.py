@@ -141,7 +141,28 @@ Phases (any failure exits non-zero and prints no result line):
              measures once; then kernels G (rows, patches), S and V bit for
              bit and M within its stated tolerance against their plain
              versions, at those shapes and ragged ones, timed as in phase 4.
-Phase 10 runs after phase 6, then 7, 9 and 8.
+11. mesh   — the mesh paths (cvsteer_tpu_torch.parallel) in worlds spawned
+             on this one card, the kernels built first: a 2-rank gloo world
+             on cuda:0 (the collectives staged through the host) and a
+             1-rank NCCL world, each running sharded_g2_maps /
+             sharded_g4_maps on 16x512x512 over {space: W} and {data: W}
+             (against steerable_pipeline_g2 / _g4 on the card with every
+             kernel replaced by its plain version, at the reference's bars),
+             sharded_extract_features on 8x480x640 over {space: W} at orders
+             2 and 4 (against the single-device generic path with every
+             kernel plain: valid masks equal, fields within 1e-5; bit-equality
+             with the kernel-backed single-device calls printed), each timed
+             (host clock, median of MESH_REPS) beside the kernel-backed
+             single-device call timed the same way, with the staged-transport
+             share and the launches of one call on each rank, and cli.main
+             --mesh space=W in the world (E/E4 launch only for the batch that
+             skips the mesh); then torchrun --nproc-per-node 2 -m
+             cvsteer_tpu_torch.cli --mesh space=2 on 16 of phase 6's PNGs and
+             the fish: every PNG equal to the plain fp32 pipeline quantized,
+             within 2 levels and 99.9 % within 1 of the unsharded CLI's bf16
+             maps, the fish's skip line. The ranks share one card: no figure
+             of this phase is a multi-card figure.
+Phase 10 and 11 run after phase 6, then 7, 9 and 8.
 Each path phase (5-10, 5b, the chunks, each cli_vo run of 5c and of the
 checkpoints) sets the launch counts to 0 just before it and reads them just
 after. The line before the last is the per-kernel JSON record;
@@ -2307,6 +2328,260 @@ def run_checkpoint_cli(roots, workdir: str) -> dict:
     return out
 
 
+# --- phase 11: the mesh (parallel/) ---------------------------------------------
+
+MESH_MAPS_SHAPE = (16, 512, 512)  # E's unit (PERF.md §6)
+MESH_FEAT_SHAPE = (8, 480, 640)  # 5 levels: at S = 2 slabs of 240 ... 15 rows
+MESH_SEED = 11
+MESH_REPS = 5  # timed calls after one counted warm-up call; their median is the call time
+MESH_TOL = {2: dict(rtol=1e-5, atol=1e-4), 4: dict(rtol=1e-4, atol=1e-3)}  # tests/test_parallel.py
+MESH_FEAT_ATOL = 1e-5  # tests/test_parallel_features.py
+MESH_CLI_PNGS = 16
+MESH_KERNELS = ("filter_bank", "pyr_down", "desc_sample", "g2_maps", "g4_maps")
+# (world, order) -> launches of one sharded_extract_features call on each rank:
+# D′ on every level; at S = 2 order 4's level 4 (15 rows, halo 15) runs
+# replicated: A for its basis and B′ for the step down to it
+MESH_FEAT_LAUNCHES = {
+    (2, 2): {"filter_bank": 0, "pyr_down": 0, "desc_sample": 5},
+    (2, 4): {"filter_bank": 1, "pyr_down": 1, "desc_sample": 5},
+    (1, 2): {"filter_bank": 0, "pyr_down": 0, "desc_sample": 5},
+    (1, 4): {"filter_bank": 0, "pyr_down": 0, "desc_sample": 5},
+}
+def _mesh_inputs():
+    import numpy as np
+
+    maps = np.random.default_rng(MESH_SEED).uniform(0, 255, MESH_MAPS_SHAPE).astype(np.float32)
+    feats = np.random.default_rng(FEAT_SEED).uniform(0, 255, MESH_FEAT_SHAPE).astype(np.float32)
+    return maps, feats
+
+
+def _host_timed(fn, before=lambda: None):
+    """(result, median s, summed s) of MESH_REPS calls of ``fn`` on the host
+    clock, each after ``before()`` with the device drained before and after
+    (the staging of a sharded call blocks the host, so the sharded and the
+    single-device calls are both timed this way)."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(MESH_REPS):
+        before()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times), sum(times)
+
+
+def _mesh_timed(fn):
+    """(result, median s, staged-transport share, launches of one call) of
+    ``fn`` on every rank: one counted call, then MESH_REPS calls timed by
+    _host_timed, each after a barrier."""
+    import torch
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.parallel import halo
+
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    halo.reset_transport_stats()
+    out, t, total = _host_timed(fn, before=dist.barrier)
+    return out, t, halo.transport_stats["seconds"] / total, launches
+
+
+def _single_plain(fn):
+    """``fn()`` with every kernel replaced by its plain version
+    (plain_kernels), and whether it launched no kernel: the single-device
+    reference of the mesh phase."""
+    import torch
+
+    from cvsteer_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    with torch.no_grad(), plain_kernels():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, not any(kernels.launch_counts().values())
+
+
+def _maps_single(x, order):
+    from cvsteer_tpu_torch.filters import g2 as fg2
+    from cvsteer_tpu_torch.filters import g4 as fg4
+
+    if order == 2:
+        m = fg2.steerable_pipeline_g2(x)
+        return m.edges, m.lines_dark, m.lines_bright
+    m = fg4.steerable_pipeline_g4(x)
+    return (fg2.find_edges(m.magnitude, m.phase), fg2.find_dark_lines(m.magnitude, m.phase),
+            fg2.find_bright_lines(m.magnitude, m.phase))
+
+
+def _features_single(x, cfg):
+    from cvsteer_tpu_torch.features.frontend import _extract_features_generic
+    from cvsteer_tpu_torch.filters import g2 as fg2
+    from cvsteer_tpu_torch.filters import g4 as fg4
+
+    fm = fg4 if cfg.order == 4 else fg2
+    bank = fm.g4_bank() if cfg.order == 4 else fm.g2_bank()
+    basis = fm.g4_basis if cfg.order == 4 else fm.g2_basis
+    return _extract_features_generic(x, cfg, basis_fn=lambda im: basis(im, bank),
+                                     coeff_fn=fm.energy_coefficients)
+
+
+def _mesh_rank(rank, cli_list, cli_out):
+    """One rank of a mesh world on the card: the sharded maps over {space: W}
+    and {data: W}, sharded_extract_features over {space: W} at orders 2 and
+    4, each timed and its launches counted; rank 0 also holds each against
+    the single-device version with every kernel plain, and against the
+    kernel-backed one (printed, and timed as the sharded call is); then
+    cli.main --mesh space=W on ``cli_list`` (every rank; rank 0 writes),
+    its launches counted."""
+    import torch
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch import cli, kernels
+    from cvsteer_tpu_torch.features.frontend import FrontendConfig
+    from cvsteer_tpu_torch.parallel import (
+        gather_blocks, make_mesh, shard_batch, sharded_extract_features, sharded_g2_maps,
+        sharded_g4_maps,
+    )
+    from cvsteer_tpu_torch.parallel.halo import staged
+
+    world = dist.get_world_size()
+    maps_in, feat_in = _mesh_inputs()
+    res = dict(backend=dist.get_backend(), world=world, rank=rank, maps={}, features={}, cli={},
+               staged=staged(torch.zeros(1, device="cuda"), None))
+    for mname, axes in (("space", {"space": world}), ("data", {"data": world})):
+        mesh = make_mesh(axes)
+        blk = shard_batch(maps_in, mesh)
+        for order, fn in ((2, sharded_g2_maps), (4, sharded_g4_maps)):
+            out, t, share, launches = _mesh_timed(lambda: fn(blk, mesh))
+            full = gather_blocks(out, mesh)
+            r = dict(s=t, share=share, launches=launches)
+            if rank == 0:
+                x = torch.from_numpy(maps_in).cuda()
+                want, plain_only = _single_plain(lambda: _maps_single(x, order))
+                kern, t1, _ = _host_timed(lambda: _maps_single(x, order))
+                r.update(single_s=t1, plain_only=plain_only,
+                         bit_equal=all(torch.equal(a, b) for a, b in zip(full, want)),
+                         bit_equal_kernel=all(torch.equal(a, b) for a, b in zip(full, kern)),
+                         max_abs_err=max(float((a - b).abs().max()) for a, b in zip(full, want)),
+                         within=all(torch.allclose(a, b, **MESH_TOL[order]) for a, b in zip(full, want)),
+                         finite=all(bool(torch.isfinite(a).all()) for a in full),
+                         shape=tuple(full[0].shape))
+                del x, want, kern
+            dist.barrier()
+            res["maps"][(mname, order)] = r
+            del out, full
+    mesh = make_mesh({"space": world})
+    blk = shard_batch(feat_in, mesh)
+    for order in (2, 4):
+        cfg = FrontendConfig(order=order)
+        out, t, share, launches = _mesh_timed(lambda: sharded_extract_features(blk, mesh, cfg))
+        full = gather_blocks(out, mesh, row_dim=None)
+        r = dict(s=t, share=share, launches=launches)
+        if rank == 0:
+            x = torch.from_numpy(feat_in).cuda()
+            want, plain_only = _single_plain(lambda: _features_single(x, cfg))
+            kern, t1, _ = _host_timed(lambda: _features_single(x, cfg))
+            v = want.valid
+            r.update(
+                single_s=t1, plain_only=plain_only, valid=int(v.sum()),
+                valid_equal=bool(torch.equal(full.valid, v)),
+                bit_equal=all(torch.equal(a, b) for a, b in zip(full, want)),
+                bit_equal_kernel=all(torch.equal(a, b) for a, b in zip(full, kern)),
+                max_abs_err={f: float((a[v].float() - b[v].float()).abs().max())
+                             for f, a, b in zip(want._fields, full, want) if f != "valid"},
+                finite=all(bool(torch.isfinite(a.float()).all()) for a in full),
+            )
+            del x, want, kern
+        dist.barrier()
+        res["features"][order] = r
+        del out, full
+    for filters in ("g2", "g4"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--input", cli_list, "--output", os.path.join(cli_out, f"world{world}_{filters}"),
+                       "--filters", filters, "--mesh", f"space={world}"])
+        res["cli"][filters] = dict(rc=rc, s=time.perf_counter() - t0, launches=kernels.launch_counts())
+    return res
+
+
+def _u8_compare(got_dir, want_dir, names):
+    """(max |difference|, share within 1 level, files missing) over the
+    three maps of ``names`` in two output directories."""
+    import numpy as np
+
+    from cvsteer_tpu_torch.io.imageio import imread_gray_f32
+
+    worst, within, total, missing = 0.0, 0, 0, 0
+    for base in names:
+        for m in MAPS:
+            a = imread_gray_f32(os.path.join(got_dir, f"{base}_{m}.png"))
+            b = imread_gray_f32(os.path.join(want_dir, f"{base}_{m}.png"))
+            if a is None or b is None or a.shape != b.shape:
+                missing += 1
+                continue
+            d = np.abs(a - b)
+            worst, within, total = max(worst, float(d.max())), within + int((d <= 1).sum()), total + d.size
+    return worst, within / max(total, 1), missing
+
+
+def run_mesh(paths, workdir: str) -> dict:
+    """Phase 11: the mesh paths on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from cvsteer_tpu_torch import cli
+    from cvsteer_tpu_torch.io.imageio import imread_gray_f32, imwrite_u8
+    from cvsteer_tpu_torch.parallel.launch import spawn_world
+    from cvsteer_tpu_torch.utils.imageproc import normalize_minmax_u8
+
+    out = {}
+    lst = os.path.join(workdir, "mesh_inputs.txt")
+    names = [os.path.splitext(os.path.basename(p))[0] for p in paths[:MESH_CLI_PNGS]]
+    with open(lst, "w") as f:
+        f.write("\n".join(list(paths[:MESH_CLI_PNGS]) + [os.path.join(GOLDEN_DIR, "fish.png")]) + "\n")
+    cli_out = os.path.join(workdir, "mesh_out")
+    t0 = time.perf_counter()
+    out["gloo2"] = spawn_world(_mesh_rank, 2, args=(lst, cli_out), device_type="cuda")
+    out["nccl1"] = spawn_world(_mesh_rank, 1, args=(lst, cli_out), device_type="cuda")
+    out["worlds_s"] = time.perf_counter() - t0
+
+    # the user's launch: torchrun, 2 ranks on this one card
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "cvsteer_tpu_torch.cli", "--input", lst, "--output", os.path.join(cli_out, "torchrun"),
+         "--mesh", "space=2", "--verbose"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    out["torchrun"] = dict(rc=run.returncode, s=time.perf_counter() - t0,
+                           stdout=run.stdout, stderr=run.stderr)
+    ref_dir = os.path.join(cli_out, "unsharded")
+    out["unsharded_rc"] = cli.main(["--input", lst, "--output", ref_dir])
+    # the single-device fp32 pipeline, every kernel plain, quantized as the CLI does
+    fp32_dir = os.path.join(cli_out, "fp32")
+    os.makedirs(fp32_dir, exist_ok=True)
+    x = torch.from_numpy(np.stack([imread_gray_f32(p) for p in paths[:MESH_CLI_PNGS]])).cuda()
+    maps, out["fp32_plain_only"] = _single_plain(lambda: _maps_single(x, 2))
+    for m, arr in zip(MAPS, maps):
+        u8 = normalize_minmax_u8(arr, axes=(-2, -1)).cpu().numpy()
+        for base, img in zip(names, u8):
+            imwrite_u8(os.path.join(fp32_dir, f"{base}_{m}.png"), img)
+    del x
+    tr = os.path.join(cli_out, "torchrun")
+    out["cli_vs_unsharded"] = _u8_compare(tr, ref_dir, names)
+    out["cli_vs_fp32"] = _u8_compare(tr, fp32_dir, names)
+    out["cli_fish_vs_unsharded"] = _u8_compare(tr, ref_dir, ["fish"])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -2669,6 +2944,94 @@ def main(argv=None) -> int:
         del fr, vg
         gc.collect()
 
+        # 11. the mesh: sharded maps, sharded features and cli --mesh in
+        # spawned worlds on this one card
+        t0 = time.perf_counter()
+        mr = run_mesh(paths, workdir)
+        note = "all ranks share this one card: these are not multi-card figures"
+        for wname in ("gloo2", "nccl1"):
+            ranks = mr[wname]
+            r0 = ranks[0]
+            tag = (f"{card} | mesh world of {r0['world']} rank(s) on cuda:0, backend {r0['backend']}, "
+                   f"collectives staged through the host: {r0['staged']} ({note})")
+            for (mname, order), m in r0["maps"].items():
+                shares = [r["maps"][(mname, order)]["share"] for r in ranks]
+                lc = [{k: r["maps"][(mname, order)]["launches"][k] for k in MESH_KERNELS}
+                      for r in ranks]
+                print(f"{tag} | sharded_g{order}_maps over {{{mname}: {r0['world']}}} on "
+                      f"{MESH_MAPS_SHAPE}: {MESH_MAPS_SHAPE[0] / m['s']:.2f} images/s sharded "
+                      f"({1e3 * m['s']:.3f} ms per call, median of {MESH_REPS}) against "
+                      f"{MESH_MAPS_SHAPE[0] / m['single_s']:.2f} single-device "
+                      f"({1e3 * m['single_s']:.3f} ms, both on the host clock); staged-transport "
+                      f"share per rank {[round(s, 4) for s in shares]}; against "
+                      f"steerable_pipeline_g{order} with every kernel plain: max abs err "
+                      f"{m['max_abs_err']:.3e}, bit-equal {m['bit_equal']}; bit-equal to the "
+                      f"kernel-backed single-device call {m['bit_equal_kernel']}; launches per "
+                      f"call per rank {lc}")
+                checks[f"mesh {wname} G{order} maps over {mname}: the plain single device at the "
+                       f"reference's bar, finite"] = (
+                    m["within"] and m["finite"] and m["shape"] == MESH_MAPS_SHAPE and m["plain_only"])
+            for order, f in r0["features"].items():
+                shares = [r["features"][order]["share"] for r in ranks]
+                lc = [{k: r["features"][order]["launches"][k] for k in MESH_KERNELS} for r in ranks]
+                print(f"{tag} | sharded_extract_features order {order} over {{space: {r0['world']}}} "
+                      f"on {MESH_FEAT_SHAPE}, 5 levels: {MESH_FEAT_SHAPE[0] / f['s']:.2f} frames/s "
+                      f"sharded ({1e3 * f['s']:.3f} ms per call) against "
+                      f"{MESH_FEAT_SHAPE[0] / f['single_s']:.2f} single-device generic path "
+                      f"({1e3 * f['single_s']:.3f} ms, both on the host clock); staged-transport "
+                      f"share per rank {[round(s, 4) for s in shares]}; against the generic path "
+                      f"with every kernel plain: {f['valid']} keypoints, valid masks equal "
+                      f"{f['valid_equal']}, bit-equal {f['bit_equal']}, max abs err "
+                      + json.dumps(f["max_abs_err"]) + f"; bit-equal to the kernel-backed generic "
+                      f"path {f['bit_equal_kernel']}; launches per call per rank {lc}")
+                want = MESH_FEAT_LAUNCHES[(r0["world"], order)]
+                checks[f"mesh {wname} features order {order}: against the plain single device, "
+                       f"valid equal, fields within {MESH_FEAT_ATOL}, finite"] = (
+                    f["valid_equal"] and f["finite"] and f["valid"] > MESH_FEAT_SHAPE[0] * 100
+                    and max(f["max_abs_err"].values()) <= MESH_FEAT_ATOL and f["plain_only"])
+                checks[f"mesh {wname} features order {order}: launches per call {want}"] = all(
+                    l[k] == v for l in lc for k, v in want.items())
+            for filters, c in r0["cli"].items():
+                lc = [{k: r["cli"][filters]["launches"][k] for k in MESH_KERNELS} for r in ranks]
+                print(f"{tag} | cli --mesh space={r0['world']} --filters {filters} in the world: rc "
+                      f"{[r['cli'][filters]['rc'] for r in ranks]}, {c['s']:.3f} s for "
+                      f"{MESH_CLI_PNGS + 1} images; launches per rank {lc}")
+                kern = "g2_maps" if filters == "g2" else "g4_maps"
+                checks[f"mesh {wname} cli {filters}: rc 0; E/E4 only where a batch skips the mesh"] = (
+                    all(r["cli"][filters]["rc"] == 0 for r in ranks)
+                    and [l[kern] for l in lc] == ([0] * len(lc) if r0["world"] == 1
+                                                  else [1] + [0] * (len(lc) - 1)))
+            launches[f"mesh_{wname}"] = {
+                **{f"maps_g{o}_{m}": [r["maps"][(m, o)]["launches"] for r in ranks]
+                   for (m, o) in r0["maps"]},
+                **{f"features_g{o}": [r["features"][o]["launches"] for r in ranks]
+                   for o in r0["features"]},
+                **{f"cli_{f}": [r["cli"][f]["launches"] for r in ranks] for f in r0["cli"]},
+            }
+        tr = mr["torchrun"]
+        skip = [ln for ln in tr["stderr"].splitlines() if ln.startswith("mesh skipped")]
+        done = [ln for ln in tr["stdout"].splitlines() if ln.startswith("processed")]
+        worst, within, missing = mr["cli_vs_unsharded"]
+        w32, _, miss32 = mr["cli_vs_fp32"]
+        wf, _, missf = mr["cli_fish_vs_unsharded"]
+        print(f"{card} | torchrun --nproc-per-node 2 -m cvsteer_tpu_torch.cli --mesh space=2 (gloo, "
+              f"2 ranks on cuda:0, staged through the host; {note}): rc {tr['rc']}, {tr['s']:.2f} s "
+              f"with start-up; {done[0] if done else 'no processed line'}; skip lines {skip}; "
+              f"{MESH_CLI_PNGS} 512x512 PNG triples against the unsharded CLI (bf16 maps): max "
+              f"{worst:.0f} levels, {100 * within:.4f} % within 1; against the single-device fp32 "
+              f"pipeline, every kernel plain, quantized: max {w32:.0f}; the fish against the unsharded CLI: max {wf:.0f}")
+        if tr["rc"] != 0:
+            print(tr["stderr"][-4000:], file=sys.stderr)
+        checks["mesh torchrun cli: rc 0, every PNG, the fish's skip line"] = (
+            tr["rc"] == 0 and mr["unsharded_rc"] == 0 and missing == miss32 == missf == 0
+            and skip == ["mesh skipped for batch (1, 185, 256): rows 185 not divisible by space=2"])
+        checks["mesh torchrun cli: equal to the plain fp32 pipeline, within 2 levels and 99.9 % "
+               "within 1 of the unsharded CLI"] = (
+            w32 == 0 and worst <= 2 and within >= MIN_U8_EQUAL and wf == 0 and mr["fp32_plain_only"])
+        print(f"{card} | phase 11 (mesh) {time.perf_counter() - t0:.1f} s (spawned worlds "
+              f"{mr['worlds_s']:.1f} s)")
+        del mr
+
     # 7. pyramid maps and gradients
     launches["pyramid"], pyr_checks = run_pyramid(frame)
     checks.update(pyr_checks)
@@ -2768,6 +3131,10 @@ def main(argv=None) -> int:
             r["launches_serving"] = launches["serving"][r["name"]]
             r["launches_chunk"] = launches["chunk"][r["name"]]
             r["launches_checkpoint"] = launches["checkpoint"][r["name"]]
+        if r["name"] in MESH_KERNELS:  # per sharded call (CLI: per run), per rank
+            r["launches_mesh"] = {
+                f"{w}_{path}": [la[r["name"]] for la in per_rank]
+                for w in ("gloo2", "nccl1") for path, per_rank in launches[f"mesh_{w}"].items()}
     print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,

@@ -13,8 +13,13 @@ The port of cvsteer_tpu.cli (the reference library's example/steer.cpp):
   --batch    images per device batch (default 16)
   --device   cuda (default) or cpu; without a GPU the CLI refuses to run
              unless --device cpu is given
+  --mesh     e.g. 'data=4,space=2' (-1 infers one axis): shards each batch
+             over 'data' and its image rows over 'space' across the ranks
+             of a torch.distributed world (parallel.make_mesh)
 
   python -m cvsteer_tpu_torch.cli --input list.txt --output out/ --filters g4
+  torchrun --nproc-per-node 4 -m cvsteer_tpu_torch.cli --input list.txt \
+      --output out/ --mesh data=2,space=2
 
 Same-shaped images batch into one call of the fused maps kernel (G2:
 filters.g2.g2_output_maps(accuracy="fast"), G4: ops.cuda_frontend.g4_maps),
@@ -24,7 +29,11 @@ when it is drained, and PNG writes run on the pool: decode, device compute
 and writes overlap. On the CPU the wrappers run their plain versions, so
 the same code runs on either device.
 
-Not ported (raises NotImplementedError): ``--mesh`` (parallel/).
+Under ``--mesh`` every rank decodes the same files; a batch that shards
+runs parallel.sharded_g2_maps / sharded_g4_maps (fp32 maps, as the
+reference's) on each rank's block, the blocks are gathered to rank 0, and
+rank 0 alone quantizes, writes the PNGs and prints. A batch that cannot
+shard runs the unsharded path on rank 0, its reason on stderr.
 """
 
 from __future__ import annotations
@@ -68,7 +77,14 @@ def main(argv=None) -> int:
     ap.add_argument("--filters", choices=["g2", "g4"], default="g2")
     ap.add_argument("--width", type=int, default=None, help="kernel half-width (default: 4 for g2, 6 for g4)")
     ap.add_argument("--spacing", type=float, default=None, help="tap spacing (default: 0.67 g2, 0.5 g4)")
-    ap.add_argument("--mesh", default="", help="multi-device mesh (not ported)")
+    ap.add_argument(
+        "--mesh",
+        default="",
+        help="multi-device mesh, e.g. 'data=4,space=2' (-1 infers one axis); "
+        "shards the batch over 'data' and image rows over 'space'. A run of N ranks is "
+        "launched as: torchrun --nproc-per-node N -m cvsteer_tpu_torch.cli --mesh "
+        "data=..,space=.. (without torchrun the world is this one process)",
+    )
     ap.add_argument("--batch", type=int, default=16, help="images per device batch")
     ap.add_argument(
         "--device", default="cuda",
@@ -77,8 +93,17 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
+    axes = {}
     if args.mesh:
-        raise NotImplementedError("--mesh (parallel/ sharding) is not ported yet")
+        try:
+            for part in args.mesh.split(","):
+                name, _, size = part.partition("=")
+                name = name.strip()
+                if name not in ("data", "space"):
+                    raise ValueError(f"unknown mesh axis {name!r} (expected data/space)")
+                axes[name] = int(size)
+        except ValueError as e:
+            ap.error(f"invalid --mesh {args.mesh!r}: {e}")
 
     import torch
 
@@ -87,11 +112,27 @@ def main(argv=None) -> int:
         return 2
     device = torch.device(args.device)
 
+    mesh, own_world = None, False
+    if axes:
+        import torch.distributed as dist
+
+        from cvsteer_tpu_torch.parallel import gather_blocks, make_mesh, shard_batch
+        from cvsteer_tpu_torch.parallel.mesh import mesh_axis, rank_device
+
+        own_world = not dist.is_initialized()
+        try:
+            mesh = make_mesh(axes, device.type)
+        except ValueError as e:
+            ap.error(f"invalid --mesh {args.mesh!r}: {e}")
+        device = rank_device(mesh)
+    root = mesh is None or dist.get_rank() == 0
+
     from cvsteer_tpu_torch.io.imageio import imread_gray_f32, imwrite_u8
     from cvsteer_tpu_torch.utils.imageproc import convert_scale_u8, normalize_minmax_u8
 
     if args.filters == "g2":
         from cvsteer_tpu_torch.filters.g2 import g2_bank, g2_output_maps
+        from cvsteer_tpu_torch.parallel.frontend_sharded import sharded_g2_maps as sharded
 
         bank = g2_bank(args.width or 4, args.spacing or 0.67)
 
@@ -100,11 +141,23 @@ def main(argv=None) -> int:
     else:
         from cvsteer_tpu_torch.filters.g4 import g4_bank
         from cvsteer_tpu_torch.ops.cuda_frontend import g4_maps
+        from cvsteer_tpu_torch.parallel.frontend_sharded import sharded_g4_maps as sharded
 
         bank = g4_bank(args.width or 6, args.spacing or 0.5)
 
         def maps(batch):
             return g4_maps(batch, bank.xtaps, bank.ytaps, out_dtype=torch.bfloat16)
+
+    def mesh_skip_reason(b, h):
+        """None if the batch can shard; otherwise the human-readable reason."""
+        nd, ns = mesh_axis(mesh, "data")[0], mesh_axis(mesh, "space")[0]
+        if b % nd != 0:
+            return f"batch {b} not divisible by data={nd}"
+        if h % ns != 0:
+            return f"rows {h} not divisible by space={ns}"
+        if (h // ns) <= bank.radius:
+            return f"row block {h // ns} <= kernel radius {bank.radius}"
+        return None
 
     if args.gain > 0:
         to8 = lambda x: convert_scale_u8(x, args.gain)  # noqa: E731
@@ -122,8 +175,19 @@ def main(argv=None) -> int:
 
     def flush(shape):
         entries = pending.pop(shape)
-        batch = torch.from_numpy(np.stack([im for _, im in entries])).to(device)
-        inflight.append(([i for i, _ in entries], shape, tuple(to8(m) for m in maps(batch))))
+        idxs = [i for i, _ in entries]
+        batch = np.stack([im for _, im in entries])
+        reason = None if mesh is None else mesh_skip_reason(*batch.shape[:2])
+        if mesh is not None and reason is None:  # every rank: its block, then the gather
+            full = gather_blocks(sharded(shard_batch(batch, mesh), mesh, bank), mesh)
+            if root:
+                inflight.append((idxs, shape, tuple(to8(m) for m in full)))
+            return
+        if mesh is not None and root:
+            print(f"mesh skipped for batch {batch.shape}: {reason}", file=sys.stderr)
+        if root:
+            result = maps(torch.from_numpy(batch).to(device))
+            inflight.append((idxs, shape, tuple(to8(m) for m in result)))
 
     def write_maps(i, edges8, dark8, bright8):
         base = os.path.join(args.output, _basename(filenames[i]))
@@ -147,7 +211,8 @@ def main(argv=None) -> int:
 
         for i, img in enumerate(pool.map(imread_gray_f32, filenames)):
             if img is None:
-                print(f"skip unreadable: {filenames[i]}", file=sys.stderr)
+                if root:
+                    print(f"skip unreadable: {filenames[i]}", file=sys.stderr)
                 continue
             pending[img.shape].append((i, img))
             if len(pending[img.shape]) >= args.batch:
@@ -160,9 +225,11 @@ def main(argv=None) -> int:
             drain_one()
         for f in write_futs:
             f.result()
-    if args.verbose:
+    if args.verbose and root:
         dt = time.time() - t0
         print(f"processed {n_done} images in {dt:.3f}s ({n_done / max(dt, 1e-9):.1f} im/s)")
+    if own_world:
+        dist.destroy_process_group()
     return 0
 
 

@@ -66,10 +66,15 @@ def _rotated_grid_samples(
 
 
 def _rotated_grid_samples_batch(
-    basis: torch.Tensor, keypoints: Keypoints, grid: int, spacing: float
+    basis: torch.Tensor, keypoints: Keypoints, grid: int, spacing: float, row_origin: int = 0
 ):
-    """(samples [B, N, S, C], ct, st [B, N]) — kernel D on the card."""
+    """(samples [B, N, S, C], ct, st [B, N]) — kernel D on the card.
+    ``row_origin``: the image row of the basis's row 0 (a row slab); the
+    coordinates are made in image rows, then moved by it (an exact
+    subtraction for samples at or below the origin)."""
     ys, xs, ct, st = _rotated_grid_coords(keypoints, grid, spacing)
+    if row_origin:
+        ys = ys - float(row_origin)
     samples = sample_patches(basis.contiguous(), ys.contiguous(), xs.contiguous())
     return samples, ct, st
 
@@ -169,10 +174,12 @@ def phase_descriptors_g4_batch(
     spacing: float = 3.0,
     pi_invariant: bool = False,
     fp32_sampling: bool = False,
+    row_origin: int = 0,
 ) -> torch.Tensor:
     """Batched :func:`phase_descriptors_g4`: ``basis [B, 11, H, W]``,
-    keypoint fields ``[B, N, ...]`` -> ``[B, N, grid*grid*2]``."""
-    samples, _, _ = _rotated_grid_samples_batch(basis, keypoints, grid, spacing)
+    keypoint fields ``[B, N, ...]`` -> ``[B, N, grid*grid*2]``
+    (``row_origin``: see :func:`phase_descriptors_batch`)."""
+    samples, _, _ = _rotated_grid_samples_batch(basis, keypoints, grid, spacing, row_origin)
     return _steer_g4_normalize(samples, keypoints, pi_invariant=pi_invariant)
 
 
@@ -184,10 +191,13 @@ def phase_descriptors_batch(
     spacing: float = 3.0,
     pi_invariant: bool = False,
     fp32_sampling: bool = False,
+    row_origin: int = 0,
 ) -> torch.Tensor:
     """``basis [B, 7, H, W]``, keypoint fields ``[B, N, ...]`` ->
-    descriptors ``[B, N, grid*grid*2]``."""
-    samples, ct, st = _rotated_grid_samples_batch(basis, keypoints, grid, spacing)
+    descriptors ``[B, N, grid*grid*2]``. ``row_origin``: the image row of
+    the basis's row 0 when it is a row slab of the image (the keypoints
+    stay in image coordinates)."""
+    samples, ct, st = _rotated_grid_samples_batch(basis, keypoints, grid, spacing, row_origin)
     return _steer_g2_normalize(
         samples, ct, st, keypoints.valid, pi_invariant=pi_invariant
     )

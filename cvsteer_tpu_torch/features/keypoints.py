@@ -88,6 +88,7 @@ def _detect_core(
     border: Optional[int],
     approx: bool,
     row_range=None,
+    row_offset: int = 0,
 ):
     """NMS + top-N selection + subpixel refinement of ``strength [..., H, W]``.
 
@@ -99,6 +100,9 @@ def _detect_core(
     row part of the border mask with a half-open row window (columns keep
     ``border``): a row slab with halos keeps the true NMS neighborhood but
     only the rows it owns produce keypoints (needs 1 <= lo, hi <= H - 1).
+    ``row_offset`` is added to each keypoint's integer row before its
+    subpixel offset (a slab's rows in image coordinates, rounded as the
+    whole image's are).
     """
     H, W = strength.shape[-2:]
     k = 2 * nms_radius + 1
@@ -115,7 +119,8 @@ def _detect_core(
     mask = is_max & in_border & (strength > threshold)
     score_masked = torch.where(mask, strength, float("-inf"))
     return _select_and_refine(
-        strength, score_masked, aux, max_keypoints, approx, pool=nms_radius + 1 if approx else 1
+        strength, score_masked, aux, max_keypoints, approx, pool=nms_radius + 1 if approx else 1,
+        row_offset=row_offset,
     )
 
 
@@ -126,6 +131,7 @@ def _select_and_refine(
     max_keypoints: int,
     approx: bool,
     pool: int = 1,
+    row_offset: int = 0,
 ):
     """Top-N selection on a pre-masked score ``[..., H, W]``, then the
     subpixel and aux picks (:func:`_gather_refine`).
@@ -160,7 +166,7 @@ def _select_and_refine(
         pad = max_keypoints - kk
         flat_scores = F.pad(flat_scores, (0, pad), value=float("-inf"))
         flat_idx = F.pad(flat_idx, (0, pad))
-    return _gather_refine(strength, aux, flat_scores, flat_idx)
+    return _gather_refine(strength, aux, flat_scores, flat_idx, row_offset)
 
 
 def _gather_refine(
@@ -168,6 +174,7 @@ def _gather_refine(
     aux: Sequence[torch.Tensor],
     flat_scores: torch.Tensor,
     flat_idx: torch.Tensor,
+    row_offset: int = 0,
 ):
     """Subpixel offsets and aux picks at preselected flat indices ``[..., N]``
     of ``strength [..., H, W]`` (the edge-clamped 4-neighborhood read at
@@ -186,7 +193,7 @@ def _gather_refine(
     s0 = torch.gather(s, 1, flat_idx)
     dy = _subpixel_offset(at((yi - 1).clamp_min(0), xi), s0, at((yi + 1).clamp_max(H - 1), xi))
     dx = _subpixel_offset(at(yi, (xi - 1).clamp_min(0)), s0, at(yi, (xi + 1).clamp_max(W - 1)))
-    yx = torch.stack([yi.to(torch.float32) + dy, xi.to(torch.float32) + dx], dim=-1)
+    yx = torch.stack([(yi + row_offset).to(torch.float32) + dy, xi.to(torch.float32) + dx], dim=-1)
     rows = [torch.gather(_flat(a), 1, flat_idx) for a in aux]
     aux_rows = torch.stack(rows, -1) if rows else yx.new_zeros(yx.shape[:-1] + (0,))
     return yx, flat_scores, valid, aux_rows

@@ -140,6 +140,19 @@ def imwrite_u8(path: str, img: np.ndarray) -> None:
         raise OSError(f"imwrite_u8: cannot write {path!r}")
 
 
+def imdecode_gray_f32(data: bytes) -> Optional[np.ndarray]:
+    """Decode in-memory 8-bit PNG (the codec) or binary PGM bytes to
+    float32 grayscale; None for anything else, JPEG included."""
+    if data.startswith(_PNG_SIG):
+        return native_codec.imdecode_gray(data)
+    if data.startswith(b"P5"):
+        try:
+            return _decode_pgm(data)
+        except (ValueError, IndexError):
+            return None
+    return None
+
+
 def imread_gray_f32(path: str) -> Optional[np.ndarray]:
     """Read an image as float32 grayscale (0..255); None if unreadable."""
     try:
@@ -147,14 +160,7 @@ def imread_gray_f32(path: str) -> Optional[np.ndarray]:
             data = f.read()
     except OSError:
         return None
-    img = None
-    if data.startswith(_PNG_SIG):
-        img = native_codec.imdecode_gray(data)
-    elif data.startswith(b"P5"):
-        try:
-            img = _decode_pgm(data)
-        except (ValueError, IndexError):
-            img = None
+    img = imdecode_gray_f32(data)
     if img is not None:
         return img
     try:

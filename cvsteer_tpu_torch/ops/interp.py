@@ -2,7 +2,8 @@
 
 Fixed-size sets of sample coordinates gather from a channels-last map with
 edge clamping: coordinates clip to the image, the +1 corners clamp to the
-last row/column. Two accuracy classes, as in the reference package:
+last row/column. :func:`bilinear_sample` samples ``[..., H, W]`` maps. Two
+accuracy classes, as in the reference package:
 
 - :func:`bilinear_sample_channels_last` — fp32 corners (the accuracy the
   port's descriptor kernel D computes);
@@ -41,6 +42,15 @@ def bilinear_sample_channels_last(
     bot = v10 * (1.0 - wx) + v11 * wx
     out = top * (1.0 - wy) + bot * wy
     return out.reshape(tuple(s_shape) + (C,))
+
+
+def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Sample ``img [..., H, W]`` at float (y, x) coordinates ``[S...]``;
+    returns ``[..., S...]`` (the batch axes as channels of
+    :func:`bilinear_sample_channels_last`)."""
+    *batch, H, W = img.shape
+    out = bilinear_sample_channels_last(img.reshape(-1, H, W).permute(1, 2, 0), ys, xs)
+    return out.movedim(-1, 0).reshape(tuple(batch) + tuple(ys.shape))
 
 
 def bilinear_sample_channels_last_pair_bf16(

@@ -128,6 +128,21 @@ def _inv3(M: torch.Tensor, lam) -> torch.Tensor:
     ) * inv[:, None, None]
 
 
+class NormalEquations(NamedTuple):
+    """All blocks of the (damped) BA normal equations for one linearization."""
+
+    H_cc: torch.Tensor  # [C, 6, 6]
+    H_ll: torch.Tensor  # [L, 3, 3]
+    W: torch.Tensor  # [C, L, 6, 3]
+    b_c: torch.Tensor  # [C, 6]
+    b_l: torch.Tensor  # [L, 3]
+
+
+def build_normal_equations(state: BAState, problem: BAProblem) -> NormalEquations:
+    """The blocks of :func:`_normal_equations` by name."""
+    return NormalEquations(*_normal_equations(state, problem))
+
+
 def _normal_equations(state: BAState, problem: BAProblem):
     """(H_cc [C,6,6], H_ll [L,3,3], W [C,L,6,3], b_c [C,6], b_l [L,3]); the
     Huber weight is split as sqrt(w) onto both operands."""

@@ -48,6 +48,12 @@ class Poses(NamedTuple):
     t: torch.Tensor  # [P, 3]
 
 
+def relative_pose(poses: Poses, i, j) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T_j o T_i^{-1} for index arrays i, j."""
+    Ri_inv, ti_inv = se3.invert(poses.R[i], poses.t[i])
+    return se3.compose(poses.R[j], poses.t[j], Ri_inv, ti_inv)
+
+
 class PGOStats(NamedTuple):
     cost: torch.Tensor
     initial_cost: torch.Tensor

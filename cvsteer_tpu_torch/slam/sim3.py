@@ -23,6 +23,16 @@ class Sim3(NamedTuple):
     t: torch.Tensor
 
 
+def identity(batch_shape=(), device=None) -> Sim3:
+    """The identity transform, of shape ``batch_shape``."""
+    batch_shape = tuple(batch_shape)
+    return Sim3(
+        s=torch.ones(batch_shape, device=device),
+        R=torch.eye(3, device=device).expand(batch_shape + (3, 3)),
+        t=torch.zeros(batch_shape + (3,), device=device),
+    )
+
+
 def compose(a: Sim3, b: Sim3) -> Sim3:
     """a o b (apply b first)."""
     return Sim3(

@@ -151,9 +151,13 @@ def test_torch_cli_g4_filter_path(tmp_path):
         assert img.shape == (185, 256) and img.max() > 100
 
 
-def test_torch_cli_refuses_unported_mesh(tmp_path):
-    with pytest.raises(NotImplementedError):
+def test_torch_cli_refuses_unported_mesh(tmp_path, capsys):
+    """--mesh is ported (parallel/); without torchrun the world is one rank,
+    so a mesh of 2 is refused with the reference's message, as a mesh that
+    does not cover the devices (tests/test_torch_cli_mesh.py runs it)."""
+    with pytest.raises(SystemExit):
         cli.main(["--input", str(FISH_PNG), "--device", "cpu", "--mesh", "data=2"])
+    assert "invalid --mesh 'data=2': mesh {'data': 2} != 1 devices" in capsys.readouterr().err
 
 
 def test_torch_clis_refuse_to_run_without_a_gpu(tmp_path, monkeypatch, capsys):
