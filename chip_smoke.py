@@ -162,7 +162,35 @@ Phases (any failure exits non-zero and prints no result line):
              within 2 levels and 99.9 % within 1 of the unsharded CLI's bf16
              maps, the fish's skip line. The ranks share one card: no figure
              of this phase is a multi-card figure.
-Phase 10 and 11 run after phase 6, then 7, 9 and 8.
+12. mesh solvers, fleet, runtime — in phase 11's two worlds, after it:
+             (a) bundle_adjust_sharded with C = 8 cameras and L = 65,536
+             landmarks (ba_world: tests/test_ba.py's scene in numpy) over
+             {data: W}, 10 LM iterations, against bundle_adjust on the card
+             (rotation < 1e-3 rad, t within 1e-3; the 1-rank world bit for
+             bit), the collectives per rank from parallel.halo's log
+             exactly one packed all-reduce of C^2 36 + C 36 + 2 C 6 floats
+             per LM iteration and one scalar per cost, and one all-gather
+             of X after the loop; (b) optimize_pose_graph_sharded on a
+             circle of 4,541 poses (KITTI 00's length) with its chain and
+             ~2 P random closures, PCG 20 x 50, against the single-device
+             PCG (cost <= 1.05x, rotation < 2e-3 rad; 1 rank: bit for bit),
+             collectives exactly (b, D) once per LM iteration, Hv once per
+             CG iteration, one scalar per cost; both timed per LM iteration
+             on the host clock beside the single device with the staged
+             share; (c) phase 5c's eight sequences through each rank's
+             extract_features on its [8/W, 480, 640] batch (B′, C′, D′ bit
+             for bit against plain there, then once a tick a rank) and
+             DeviceVOFleet(mesh=) classic and pipelined (promote_cap 2),
+             each beside the unsharded fleet in the same world: 2 captures
+             a rank, the 1-rank fleet equal to the unsharded one bit for
+             bit, on 2 ranks each stream within 0.03 m of its single-stream
+             DeviceVO (phase 5c's) until its first promotion and its ATE
+             under ate_bound where the unsharded stream's is, aggregate
+             frames/s of both (host clock); (d) initialize_distributed,
+             device_barrier (the rank count), allreduce_checksum (exact)
+             and a Heartbeat's 2 beats. The ranks share one card: no
+             figure of this phase is a multi-card figure.
+Phases 10, 11 and 12 run after phase 6, then 7, 9 and 8.
 Each path phase (5-10, 5b, the chunks, each cli_vo run of 5c and of the
 checkpoints) sets the launch counts to 0 just before it and reads them just
 after. The line before the last is the per-kernel JSON record;
@@ -1171,8 +1199,10 @@ def run_serving(workdir: str) -> dict:
             ))
         cli[name] = dict(rc=rc, launches=launches, streams=streams, wall_s=wall,
                          stdout=buf.getvalue().strip().splitlines())
+    stacks_path = os.path.join(workdir, "serve_stacks.npy")  # phase 12's frames, 8 bits
+    np.save(stacks_path, stacks.astype(np.uint8))
     return dict(agree=agree, lib=res, graphs=graphs, cli=cli, gates=gates, render_s=render_s,
-                batching=batching, first_promo=first_promo)
+                batching=batching, first_promo=first_promo, stacks_path=stacks_path)
 
 
 # --- phase 9: loop closure --------------------------------------------------
@@ -1368,9 +1398,10 @@ def run_loop_closure() -> dict:
     return out
 
 
-def pgo_world(P, seed, sim3=False):
+def pgo_world(P, seed, sim3=False, loops=0):
     """A circle of P world->camera poses (numpy) with odometry edges and two
-    closures measured from the truth with 0.01 noise, and a start drifted by
+    closures, plus ``loops`` random closures between poses at least two
+    apart, measured from the truth with 0.01 noise, and a start drifted by
     0.05 per pose (and, for Sim(3), a scale ramp to e^0.3); pose 0 fixed."""
     import numpy as np
     import torch
@@ -1384,6 +1415,10 @@ def pgo_world(P, seed, sim3=False):
     c = np.stack([5 * np.cos(ang), 5 * np.sin(ang), 0 * ang], 1)
     t = (-(R @ c[..., None])[..., 0]).astype(np.float32)
     edges = [(k, k + 1) for k in range(P - 1)] + [(0, P - 1), (1, P // 2)]
+    if loops:
+        lrng = np.random.default_rng(seed + 1)
+        a = lrng.integers(0, P, loops)
+        edges += list(zip(a.tolist(), ((a + lrng.integers(2, P - 1, loops)) % P).tolist()))
     i = np.array([a for a, _ in edges], np.int32)
     j = np.array([b for _, b in edges], np.int32)
     Rz = R[j] @ np.transpose(R[i], (0, 2, 1))
@@ -1403,6 +1438,20 @@ def pgo_world(P, seed, sim3=False):
     )
 
 
+def pgo_tensors(w, device):
+    """(Poses, PoseGraph) of a pgo_world on ``device``."""
+    import torch
+
+    from cvsteer_tpu_torch.slam import posegraph as pg
+
+    def T(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    g = pg.PoseGraph(T(w["i"], torch.int32), T(w["j"], torch.int32), T(w["Rz"]), T(w["tz"]),
+                     torch.ones(len(w["i"]), device=device), T(w["fixed"], torch.bool))
+    return pg.Poses(T(w["R0"]), T(w["t0"])), g
+
+
 def pgo_call(w, device, *, kind, **kw):
     """optimize_pose_graph (kind "se3") or optimize_pose_graph_sim3 ("sim3")
     on a pgo_world on ``device``: (poses, stats)."""
@@ -1418,8 +1467,7 @@ def pgo_call(w, device, *, kind, **kw):
     i, j, E = T(w["i"], torch.int32), T(w["j"], torch.int32), len(w["i"])
     fixed = T(w["fixed"], torch.bool)
     if kind == "se3":
-        g = pg.PoseGraph(i, j, T(w["Rz"]), T(w["tz"]), T([1.0] * E), fixed)
-        return pg.optimize_pose_graph(pg.Poses(T(w["R0"]), T(w["t0"])), g, **kw)
+        return pg.optimize_pose_graph(*pgo_tensors(w, device), **kw)
     g = ps.Sim3Graph(i, j, T(w["sz"]), T(w["Rz"]), T(w["tz"]), T([1.0] * E), fixed)
     return ps.optimize_pose_graph_sim3(Sim3(T(w["s0"]), T(w["R0"]), T(w["t0"])), g, **kw)
 
@@ -2355,8 +2403,8 @@ def _mesh_inputs():
     return maps, feats
 
 
-def _host_timed(fn, before=lambda: None):
-    """(result, median s, summed s) of MESH_REPS calls of ``fn`` on the host
+def _host_timed(fn, before=lambda: None, reps=MESH_REPS):
+    """(result, median s, summed s) of ``reps`` calls of ``fn`` on the host
     clock, each after ``before()`` with the device drained before and after
     (the staging of a sharded call blocks the host, so the sharded and the
     single-device calls are both timed this way)."""
@@ -2365,7 +2413,7 @@ def _host_timed(fn, before=lambda: None):
     import torch
 
     times = []
-    for _ in range(MESH_REPS):
+    for _ in range(reps):
         before()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2532,8 +2580,10 @@ def _u8_compare(got_dir, want_dir, names):
     return worst, within / max(total, 1), missing
 
 
-def run_mesh(paths, workdir: str) -> dict:
-    """Phase 11: the mesh paths on the card (see the module docstring)."""
+def run_mesh(paths, workdir: str, p12: dict) -> dict:
+    """Phases 11 and 12: the mesh paths on the card (see the module
+    docstring); ``p12``: phase 12's inputs (the BA and pose-graph worlds,
+    phase 5c's frames)."""
     import numpy as np
     import torch
 
@@ -2549,8 +2599,11 @@ def run_mesh(paths, workdir: str) -> dict:
         f.write("\n".join(list(paths[:MESH_CLI_PNGS]) + [os.path.join(GOLDEN_DIR, "fish.png")]) + "\n")
     cli_out = os.path.join(workdir, "mesh_out")
     t0 = time.perf_counter()
-    out["gloo2"] = spawn_world(_mesh_rank, 2, args=(lst, cli_out), device_type="cuda")
-    out["nccl1"] = spawn_world(_mesh_rank, 1, args=(lst, cli_out), device_type="cuda")
+    out["p12"] = {}
+    for wname, n in (("gloo2", 2), ("nccl1", 1)):
+        ranks = spawn_world(_mesh_world_rank, n, args=(lst, cli_out, p12), device_type="cuda")
+        out[wname] = [r["mesh"] for r in ranks]
+        out["p12"][wname] = [r["p12"] for r in ranks]
     out["worlds_s"] = time.perf_counter() - t0
 
     # the user's launch: torchrun, 2 ranks on this one card
@@ -2580,6 +2633,429 @@ def run_mesh(paths, workdir: str) -> dict:
     out["cli_vs_fp32"] = _u8_compare(tr, fp32_dir, names)
     out["cli_fish_vs_unsharded"] = _u8_compare(tr, ref_dir, ["fish"])
     return out
+
+
+# --- phase 12: the sharded solvers, the sharded fleet and the runtime ---------
+
+# (a) BA: the VO window's C = 8 cameras against a map block of 65,536
+# landmarks (config 5's BA half: tests/test_ba.py's synthetic scene, its
+# pose, point and drop perturbations), 10 LM iterations
+MESH_BA = dict(C=8, L=65536, iterations=10, seed=0)
+# (b) the pose graph: 4,541 poses (KITTI odometry sequence 00's length,
+# config 5's sequence; the dataset is not in the repository, so a synthetic
+# circle with its chain and ~2 P random loop closures), PCG 20 x 50
+MESH_PGO = dict(P=4541, iterations=20, cg=50, seed=7)
+MESH_SOLVER_REPS = 2  # timed calls (after the counted call, which warms up); their mean
+MESH_BA_TOL = dict(rot=1e-3, t=1e-3)  # tests/test_parallel.py:108-115
+MESH_PGO_TOL = dict(cost=1.05, rot=2e-3)  # tests/test_posegraph.py:187-189
+MESH_FLEET_CAP = SERVE_PIPE_CAP  # the pipelined fleet of phase 5c
+MESH_FLEET_RUNS = {"classic": {}, "pipelined": dict(pipeline=True, promote_cap=MESH_FLEET_CAP)}
+
+
+def _np_exp_so3(w):
+    """Rodrigues' formula for rotation vectors ``w [..., 3]`` (numpy)."""
+    import numpy as np
+
+
+    th = np.linalg.norm(w, axis=-1)[..., None, None]
+    K = np.zeros(w.shape[:-1] + (3, 3))
+    K[..., 0, 1], K[..., 0, 2], K[..., 1, 2] = -w[..., 2], w[..., 1], -w[..., 0]
+    K = K - np.swapaxes(K, -1, -2)
+    s = np.where(th > 1e-12, np.sin(th) / np.maximum(th, 1e-12), 1.0)
+    c = np.where(th > 1e-12, (1 - np.cos(th)) / np.maximum(th, 1e-12) ** 2, 0.5)
+    return np.eye(3) + s * K + c * (K @ K)
+
+
+def ba_world(C, L, seed, pose_err=0.02, point_err=0.05, drop=0.2):
+    """tests/test_ba.py::_synthetic_ba's scene in numpy: L points in a box
+    6-14 m ahead, C cameras along x with small rotations observing them
+    (normalized coordinates, a share ``drop`` of the observations masked),
+    the start perturbed by ``pose_err`` (cameras 1..C-1; camera 0 fixed)
+    and ``point_err``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-3, -3, 6], [3, 3, 14], (L, 3))
+    R = _np_exp_so3(rng.normal(0, 0.05, (C, 3))).astype(np.float32)
+    t = np.stack([[0.4 * c - 0.2 * C, 0.02 * c, 0.01 * c] for c in range(C)]).astype(np.float32)
+    p = np.einsum("cij,lj->cli", R, X) + t[:, None, :]
+    mask = (p[..., 2] > 0.5) & (rng.uniform(size=(C, L)) > drop)
+    R0, t0 = R.copy(), t.copy()
+    R0[1:] = _np_exp_so3(rng.normal(0, pose_err, (C - 1, 3))).astype(np.float32) @ R0[1:]
+    t0[1:] += rng.normal(0, pose_err, (C - 1, 3)).astype(np.float32)
+    return dict(uv=(p[..., :2] / p[..., 2:3]).astype(np.float32), mask=mask,
+                fixed=np.arange(C) == 0, R0=R0, t0=t0,
+                X0=(X + rng.normal(0, point_err, X.shape)).astype(np.float32))
+
+
+def _ba_tensors(w, device):
+    import torch
+
+    from cvsteer_tpu_torch.slam.ba import BAProblem, BAState
+
+    def T(a):
+        return torch.as_tensor(a, device=device)
+
+    return (BAProblem(uv=T(w["uv"]), mask=T(w["mask"]), fixed_cameras=T(w["fixed"])),
+            BAState(R=T(w["R0"]), t=T(w["t0"]), X=T(w["X0"])))
+
+
+def _geodesic_max(Ra, Rb) -> float:
+    """The largest rotation angle between ``Ra`` and ``Rb`` [..., 3, 3], as
+    2 asin(|Ra - Rb|_F / 2 sqrt 2) in float64: exact 0 for equal matrices
+    (arccos of the float32 trace reads ~1e-3 there)."""
+    import torch
+
+    d = torch.linalg.matrix_norm(Ra.double() - Rb.double()) / (2 * math.sqrt(2))
+    return float(2 * torch.asin(d.clamp(max=1.0)).max())
+
+
+def _logged(fn):
+    """(fn(), the collectives it made: parallel.halo.record_collectives)."""
+    from cvsteer_tpu_torch.parallel import halo
+
+    with halo.record_collectives() as log:
+        out = fn()
+    return out, log
+
+
+def _solver_timed(fn, single, iterations):
+    """(result, ms per iteration, staged share) of a sharded solver call
+    (barriers, host clock, MESH_SOLVER_REPS calls; the caller has made the
+    counted call, which warms the path up), and the single-device call's
+    (result, ms per iteration: a warm-up, then as many calls) on rank 0,
+    the other ranks waiting."""
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch.parallel import halo
+
+    halo.reset_transport_stats()
+    out, t, total = _host_timed(fn, before=dist.barrier, reps=MESH_SOLVER_REPS)
+    share = halo.transport_stats["seconds"] / total
+    ref = t1 = None
+    if dist.get_rank() == 0:
+        single()  # warm-up: the whole problem's shapes
+        ref, t1, _ = _host_timed(single, reps=MESH_SOLVER_REPS)
+    dist.barrier()
+    return out, 1e3 * t / iterations, share, ref, None if t1 is None else 1e3 * t1 / iterations
+
+
+def _mesh_solvers(world: int, ba_w, pgo_w) -> dict:
+    """Phase 12 (a) and (b) on this rank: bundle_adjust_sharded over {data:
+    world} against bundle_adjust, optimize_pose_graph_sharded against the
+    single-device PCG, each with its collectives and ms per iteration."""
+    import torch
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch.parallel import make_mesh
+    from cvsteer_tpu_torch.parallel.ba_sharded import bundle_adjust_sharded, place_ba_inputs
+    from cvsteer_tpu_torch.parallel.mesh import mesh_axis
+    from cvsteer_tpu_torch.parallel.posegraph_sharded import (
+        optimize_pose_graph_sharded, place_pose_graph,
+    )
+    from cvsteer_tpu_torch.slam.ba import BAProblem, bundle_adjust
+    from cvsteer_tpu_torch.slam.posegraph import optimize_pose_graph
+
+    mesh = make_mesh({"data": world})
+    group = mesh_axis(mesh, "data")[2]
+    out = {}
+    it = MESH_BA["iterations"]
+    prob, init = _ba_tensors(ba_w, "cuda")
+    sst, sprob, L = place_ba_inputs(init, prob, mesh)
+    _, lm_log = _logged(lambda: bundle_adjust(sst, BAProblem(*sprob), iterations=it, group=group))
+    _, whole_log = _logged(lambda: bundle_adjust_sharded(init, prob, mesh, iterations=it))
+    (got, stats), ms, share, ref, ms1 = _solver_timed(
+        lambda: bundle_adjust_sharded(init, prob, mesh, iterations=it),
+        lambda: bundle_adjust(init, prob, iterations=it), it)
+    r = dict(lm_log=lm_log, whole_log=whole_log, ms=ms, share=share, ms_single=ms1, L=L,
+             shard=tuple(sprob.uv.shape), cost=float(stats.cost), initial=float(stats.initial_cost),
+             finite=all(bool(torch.isfinite(a).all()) for a in got), shape=tuple(got.X.shape))
+    if ref is not None:
+        st1, s1 = ref
+        r.update(rot=_geodesic_max(got.R, st1.R), t=float((got.t - st1.t).abs().max()),
+                 X=float((got.X - st1.X).abs().max()), cost_single=float(s1.cost),
+                 bit_equal=all(torch.equal(a, b) for a, b in zip(got, st1)))
+    out["ba"] = r
+    del prob, init, sst, sprob, got, ref
+
+    kw = dict(iterations=MESH_PGO["iterations"], cg_iterations=MESH_PGO["cg"])
+    poses, graph = pgo_tensors(pgo_w, "cuda")
+    placed = place_pose_graph(graph, mesh)
+    _, log = _logged(lambda: optimize_pose_graph_sharded(poses, placed, mesh, **kw))
+    (got, stats), ms, share, ref, ms1 = _solver_timed(
+        lambda: optimize_pose_graph_sharded(poses, graph, mesh, **kw),
+        lambda: optimize_pose_graph(poses, graph, solver="pcg", **kw), kw["iterations"])
+    r = dict(log=log, ms=ms, share=share, ms_single=ms1, E=int(graph.i.shape[0]),
+             shard=int(placed.i.shape[0]), cost=float(stats.cost),
+             initial=float(stats.initial_cost), finite=bool(torch.isfinite(got.t).all()))
+    if ref is not None:
+        p1, s1 = ref
+        r.update(rot=_geodesic_max(got.R, p1.R), cost_single=float(s1.cost),
+                 bit_equal=torch.equal(got.R, p1.R) and torch.equal(got.t, p1.t))
+    out["pgo"] = r
+    dist.barrier()
+    return out
+
+
+def _fleet_run(make, stacks, lo, m, cfg, barrier=True):
+    """A library serving run of phase 5c's frames through ``make()``'s
+    fleet, this rank's streams lo..lo+m-1 only: per tick their images to
+    the card, one extract_features over the [m, 480, 640] batch, then
+    ``step`` with every other stream's frame None. Ticks from
+    SERVE_PROFILE_FROM on are timed on the host clock (after a barrier of
+    the world unless ``barrier`` is False). Returns each stream's (R, t)
+    (finalize: a collective on a mesh), the timed seconds, the launches of
+    the run and the fleet's captures."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch import kernels
+    from cvsteer_tpu_torch.cli_vo import _to_device
+    from cvsteer_tpu_torch.features.frontend import Features, extract_features
+
+    n_ticks, S = stacks.shape[0], stacks.shape[1]
+    gc.collect()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    flt = make()
+    t0 = None
+    for k in range(n_ticks):
+        if k == SERVE_PROFILE_FROM:
+            torch.cuda.synchronize()
+            if barrier:
+                dist.barrier()
+            t0 = time.perf_counter()
+        imgs = np.ascontiguousarray(stacks[k, lo: lo + m], np.float32)
+        batch = extract_features(_to_device(imgs, torch.device("cuda")), cfg=cfg.frontend)
+        frames = [None] * S
+        for i in range(m):
+            frames[lo + i] = Features(*(x[i] for x in batch))
+        flt.step(frames)
+    flt._flush()
+    torch.cuda.synchronize()
+    timed = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    poses = [flt.finalize(i).poses() for i in range(S)]
+    return dict(poses=poses, s=timed, launches=launches, captures=flt.captures,
+                engine_captures=sum(e.captures for e in flt.engines), engines=len(flt.engines))
+
+
+def _mesh_fleet(world: int, stacks_path: str) -> dict:
+    """Phase 12 (c) on this rank: B′, C′, D′ against their plain versions
+    on the rank's [S/n, 480, 640] sub-fleet batch; DeviceVOFleet(mesh=)
+    classic and pipelined over {data: world}, each followed by the
+    unsharded fleet on rank 0 (the others waiting at a barrier)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch.filters.g2 import g2_bank
+    from cvsteer_tpu_torch.parallel import make_mesh
+    from cvsteer_tpu_torch.slam.vo import VOConfig
+    from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet
+
+    cfg = VOConfig()
+    stacks = np.load(stacks_path, mmap_mode="r")
+    S = stacks.shape[1]
+    mesh = make_mesh({"data": world})
+    m, rank = S // world, dist.get_rank()
+    lo = rank * m
+    fe = frontend_agreement(torch.from_numpy(np.asarray(stacks[0, lo: lo + m], np.float32)).cuda(),
+                            cfg.frontend, g2_bank())
+    out = dict(agree={k: fe[k] for k in PATH_KERNELS["serving"]}, batch=m,
+               p3_keep_agreement=fe["p3_keep_agreement"])
+    del fe
+    for name, kw in MESH_FLEET_RUNS.items():
+        out[name] = _fleet_run(lambda: DeviceVOFleet(cfg, n_streams=S, mesh=mesh, **kw),
+                               stacks, lo, m, cfg)
+        if rank == 0:
+            out[f"{name} unsharded"] = _fleet_run(
+                lambda: DeviceVOFleet(cfg, n_streams=S, **kw), stacks, 0, S, cfg, barrier=False)
+        dist.barrier()
+    return out
+
+
+def _mesh_runtime(world: int) -> dict:
+    """Phase 12 (d) on this rank: initialize_distributed on the joined
+    world, device_barrier, allreduce_checksum of a CUDA tensor against its
+    exact sum, and a Heartbeat's beats."""
+    import torch
+    import torch.distributed as dist
+
+    from cvsteer_tpu_torch.parallel.multihost import (
+        Heartbeat, allreduce_checksum, device_barrier, initialize_distributed,
+    )
+
+    n = 4096  # integer sums below 2^24: exact in float32
+    x = torch.arange(n, dtype=torch.float32, device="cuda") - 1000.0 * dist.get_rank()
+    want = sum(abs(k - 1000 * r) for r in range(world) for k in range(n))
+    out = dict(joined=initialize_distributed(), barrier=device_barrier(), want=float(want),
+               checksum=float(allreduce_checksum(x, dist.group.WORLD)))
+    hb = Heartbeat(interval_s=0.05, timeout_s=30.0).start()
+    deadline = time.monotonic() + 30.0
+    while hb.beats < 2 and not hb.failed and time.monotonic() < deadline:
+        time.sleep(0.02)
+    hb.stop()
+    out.update(beats=hb.beats, failed=hb.failed)
+    return out
+
+
+def _mesh_world_rank(rank, cli_list, cli_out, p12):
+    """One rank of a mesh world on the card: phase 11 (_mesh_rank), then
+    phase 12's solvers, fleet and runtime, each timed on this rank."""
+    import torch.distributed as dist
+
+    out = dict(mesh=_mesh_rank(rank, cli_list, cli_out))
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    r = dict(solvers=_mesh_solvers(world, p12["ba"], p12["pgo"]))
+    r["solvers_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    r["fleet"] = _mesh_fleet(world, p12["stacks"])
+    r["fleet_s"] = time.perf_counter() - t1
+    r["runtime"] = _mesh_runtime(world)
+    r["s"] = time.perf_counter() - t0
+    out["p12"] = r
+    return out
+
+
+def _centers(R, t):
+    import numpy as np
+
+    return -np.einsum("fji,fj->fi", R, t)
+
+
+def check_phase12(p12: dict, ref: dict, card: str):
+    """Phase 12's lines and checks from the worlds' results ``p12`` (world
+    name -> the ranks' results) and phase 5c's references ``ref``; returns
+    (checks, launches of B′, C′, D′ per world, run and rank)."""
+    import numpy as np
+
+    from cvsteer_tpu_torch.io.render import PlanesSequence
+    from cvsteer_tpu_torch.slam.evaluate import ate_rmse
+
+    checks, launches = {}, {}
+    note = "ranks on one card: not a multi-card figure"
+    S = SERVE_STREAMS
+    gts = [PlanesSequence(n_frames=SERVE_FRAMES, image_hw=(480, 640), seed=s).gt_arrays()
+           for s in range(S)]
+    it, P = MESH_BA["iterations"], MESH_PGO["P"]
+    packed = MESH_BA["C"] ** 2 * 36 + MESH_BA["C"] * 36 + 2 * MESH_BA["C"] * 6
+    for wname, ranks in p12.items():
+        n = len(ranks)
+        r0 = ranks[0]
+        tag = f"{card} | phase 12, {wname} ({n} rank(s) on cuda:0; {note})"
+        one = n == 1
+        # (a) BA
+        b = r0["solvers"]["ba"]
+        print(f"{tag} | bundle_adjust_sharded, C = {MESH_BA['C']}, L = {MESH_BA['L']} over "
+              f"{{data: {n}}} (shard {b['shard']}), {it} LM iterations: "
+              f"{[round(r['solvers']['ba']['ms'], 3) for r in ranks]} ms per LM iteration per rank "
+              f"(host clock, mean of {MESH_SOLVER_REPS} calls; staged share "
+              f"{[round(r['solvers']['ba']['share'], 4) for r in ranks]}) against "
+              f"{b['ms_single']:.3f} single-device bundle_adjust; cost {b['initial']:.4e} -> "
+              f"{b['cost']:.4e} (single {b['cost_single']:.4e}); against the single device: "
+              f"rotation {b['rot']:.3e} rad, t {b['t']:.3e}, X {b['X']:.3e}, bit-equal "
+              f"{b['bit_equal']}; collectives per rank in the LM loop: "
+              f"{b['lm_log'].count(('all_reduce', packed))} x {packed} floats, "
+              f"{b['lm_log'].count(('all_reduce', 1))} scalars, {len(b['lm_log'])} in all; "
+              f"bundle_adjust_sharded adds {b['whole_log'][len(b['lm_log']):]}")
+        checks[f"phase 12 {wname} BA: per rank {it} all-reduces of {packed} floats, {it + 1} "
+               f"scalars, nothing else; one all-gather of X after the loop"] = all(
+            r["solvers"]["ba"]["lm_log"].count(("all_reduce", packed)) == it
+            and r["solvers"]["ba"]["lm_log"].count(("all_reduce", 1)) == it + 1
+            and len(r["solvers"]["ba"]["lm_log"]) == 2 * it + 1
+            and r["solvers"]["ba"]["whole_log"] == r["solvers"]["ba"]["lm_log"]
+            + [("all_gather", r["solvers"]["ba"]["shard"][1] * 3)] for r in ranks)
+        checks[f"phase 12 {wname} BA: " + ("bit-equal to the single device" if one else
+               f"rotation < {MESH_BA_TOL['rot']}, t within {MESH_BA_TOL['t']} of the single device")] = (
+            b["finite"] and b["shape"] == (MESH_BA["L"], 3) and b["cost"] < b["initial"]
+            and (b["bit_equal"] if one else b["rot"] < MESH_BA_TOL["rot"] and b["t"] <= MESH_BA_TOL["t"]))
+        # (b) the pose graph
+        g = r0["solvers"]["pgo"]
+        log = g["log"]
+        print(f"{tag} | optimize_pose_graph_sharded, P = {P}, E = {g['E']} (shard {g['shard']}), "
+              f"PCG {MESH_PGO['iterations']} x {MESH_PGO['cg']} over {{data: {n}}}: "
+              f"{[round(r['solvers']['pgo']['ms'], 3) for r in ranks]} ms per LM iteration per rank "
+              f"(staged share {[round(r['solvers']['pgo']['share'], 4) for r in ranks]}) against "
+              f"{g['ms_single']:.3f} single-device PCG; cost {g['initial']:.4e} -> {g['cost']:.4e} "
+              f"(single {g['cost_single']:.4e}); rotation {g['rot']:.3e} rad from the single "
+              f"device, bit-equal {g['bit_equal']}; collectives per rank: "
+              f"{log.count(('all_reduce', 42 * P))} x {42 * P}, {log.count(('all_reduce', 6 * P))} "
+              f"x {6 * P}, {log.count(('all_reduce', 1))} scalars, {len(log)} in all")
+        L_, C_ = MESH_PGO["iterations"], MESH_PGO["cg"]
+        checks[f"phase 12 {wname} PGO: per rank {L_} x {42 * P}, {L_ * C_} x {6 * P}, {L_ + 1} "
+               f"scalars, nothing else"] = all(
+            r["solvers"]["pgo"]["log"].count(("all_reduce", 42 * P)) == L_
+            and r["solvers"]["pgo"]["log"].count(("all_reduce", 6 * P)) == L_ * C_
+            and r["solvers"]["pgo"]["log"].count(("all_reduce", 1)) == L_ + 1
+            and len(r["solvers"]["pgo"]["log"]) == L_ * (C_ + 2) + 1 for r in ranks)
+        checks[f"phase 12 {wname} PGO: " + ("bit-equal to the single device" if one else
+               f"cost <= {MESH_PGO_TOL['cost']} x, rotation < {MESH_PGO_TOL['rot']}")] = (
+            g["finite"] and g["cost"] < g["initial"]
+            and (g["bit_equal"] if one else g["cost"] <= MESH_PGO_TOL["cost"] * g["cost_single"]
+                 + 1e-10 and g["rot"] < MESH_PGO_TOL["rot"]))
+        # (c) the fleet
+        f0 = r0["fleet"]
+        agree = [{k: r["fleet"]["agree"][k] for k in PATH_KERNELS["serving"]} for r in ranks]
+        print(f"{tag} | B′, C′, D′ against their plain versions on each rank's "
+              f"[{f0['batch']}, 480, 640] sub-fleet batch: " + json.dumps(
+                  [{k: {"max_abs_err": a[k][0], "bit_equal": a[k][1]} for k in a} for a in agree])
+              + f"; p3 keep agreement {[r['fleet']['p3_keep_agreement'] for r in ranks]}")
+        checks[f"phase 12 {wname} fleet: B′, C′, D′ bit-equal to plain on the sub-fleet batch"] = all(
+            a[k][1] for a in agree for k in a) and all(
+            r["fleet"]["p3_keep_agreement"] == 1.0 for r in ranks)
+        for mode in MESH_FLEET_RUNS:
+            sh, un = f0[mode], f0[f"{mode} unsharded"]
+            timed = SERVE_FRAMES - SERVE_PROFILE_FROM
+            fps = S * timed / max(r["fleet"][mode]["s"] for r in ranks)
+            lc = [{k: r["fleet"][mode]["launches"][k] for k in VO_LAUNCHES_PER_FRAME} for r in ranks]
+            launches[f"{wname}_{mode}"] = lc
+            ate = [ate_rmse(*p, *g_) for p, g_ in zip(sh["poses"], gts)]
+            ate_un = [ate_rmse(*p, *g_) for p, g_ in zip(un["poses"], gts)]
+            before = [float(np.linalg.norm(_centers(*p)[:k] - _centers(*q)[:k], axis=1).max())
+                      for p, q, k in zip(sh["poses"], ref["single"], ref["first_promo"])]
+            same = all(np.array_equal(a, b_) for p, q in zip(sh["poses"], un["poses"])
+                       for a, b_ in zip(p, q))
+            print(f"{tag} | DeviceVOFleet(mesh=) {mode}"
+                  + (f" (promote_cap {MESH_FLEET_CAP})" if mode == "pipelined" else "")
+                  + f", S = {S} over {{data: {n}}} ({S // n} streams a rank), phase 5c's "
+                  f"{SERVE_FRAMES} frames: {fps:.2f} frames/s aggregate over ticks "
+                  f"{SERVE_PROFILE_FROM}-{SERVE_FRAMES - 1} against {S * timed / un['s']:.2f} "
+                  f"unsharded in this world (both on the host clock, front-end included); bit-equal "
+                  f"to the unsharded fleet {same}; ATE per stream {[round(a, 4) for a in ate]} "
+                  f"(unsharded {[round(a, 4) for a in ate_un]}, bounds "
+                  f"{[round(x, 4) for x in ref['gates']]}); camera centers apart from the "
+                  f"single-stream DeviceVO's before its first promotion at most "
+                  f"{[round(x, 6) for x in before]} m (bar {VO_TWIN_GAP}); captures per rank "
+                  f"{[r['fleet'][mode]['captures'] for r in ranks]} (engines "
+                  f"{[r['fleet'][mode]['engine_captures'] for r in ranks]}); launches per rank {lc}")
+            whole = all(len(p[1]) == SERVE_FRAMES and np.isfinite(p[1]).all() for p in sh["poses"])
+            checks[f"phase 12 {wname} fleet {mode}: one finite pose per frame, 2 captures a rank, "
+                   f"B′, C′, D′ once a tick a rank"] = whole and all(
+                r["fleet"][mode]["captures"] == 2 and r["fleet"][mode]["engine_captures"] == 0
+                and r["fleet"][mode]["engines"] == S // n for r in ranks) and all(
+                l_[k] == v * SERVE_FRAMES for l_ in lc for k, v in VO_LAUNCHES_PER_FRAME.items())
+            if one:
+                checks[f"phase 12 {wname} fleet {mode}: bit-equal to the unsharded fleet"] = same
+            else:
+                checks[f"phase 12 {wname} fleet {mode}: each stream at its single-stream DeviceVO "
+                       f"until its first promotion, ATE within bound where the unsharded "
+                       f"stream's is"] = all(x < VO_TWIN_GAP for x in before) and all(
+                    a < bd for a, u, bd in zip(ate, ate_un, ref["gates"]) if u < bd)
+        # (d) the runtime
+        rt = [r["runtime"] for r in ranks]
+        print(f"{tag} | multihost: initialize_distributed {[x['joined'] for x in rt]}, "
+              f"device_barrier {[x['barrier'] for x in rt]}, allreduce_checksum "
+              f"{[x['checksum'] for x in rt]} (exact {rt[0]['want']}), Heartbeat beats "
+              f"{[x['beats'] for x in rt]}, failed {[x['failed'] for x in rt]}")
+        checks[f"phase 12 {wname} multihost: barrier {float(n)}, checksum exact, 2 beats"] = all(
+            x["joined"] == (n > 1) and x["barrier"] == float(n) and x["checksum"] == x["want"]
+            and x["beats"] >= 2 and not x["failed"] for x in rt)
+        print(f"{tag} | phase 12 on rank 0: {r0['s']:.1f} s (solvers {r0['solvers_s']:.1f} s, "
+              f"fleet {r0['fleet_s']:.1f} s)")
+    return checks, launches
 
 
 def main(argv=None) -> int:
@@ -2851,6 +3327,14 @@ def main(argv=None) -> int:
         print(f"{card} | checkpoints: {time.perf_counter() - t1:.1f} s")
         print(f"{card} | phase 5c (serving) {time.perf_counter() - t0:.1f} s (frames rendered "
               f"and written in {srv['render_s']:.1f} s, {SERVE_RENDER_WORKERS} processes)")
+        # phase 12's references: the single-stream DeviceVOs of the same frames
+        fleet_ref = dict(single=[s_.poses() for s_ in srv["lib"]["DeviceVOServer"]["states"]],
+                         gates=[g["bound"] for g in srv["gates"]], first_promo=srv["first_promo"])
+        p12_inputs = dict(
+            stacks=srv["stacks_path"],
+            ba=ba_world(MESH_BA["C"], MESH_BA["L"], MESH_BA["seed"]),
+            pgo=pgo_world(MESH_PGO["P"], MESH_PGO["seed"], loops=2 * MESH_PGO["P"] - 2),
+        )
         del srv
         gc.collect()  # the serving runs' card memory goes before phase 9's peak
         print(f"{card} | card memory allocated before phase 5c {mem0 / 2**20:.1f} MiB, after it "
@@ -2944,10 +3428,11 @@ def main(argv=None) -> int:
         del fr, vg
         gc.collect()
 
-        # 11. the mesh: sharded maps, sharded features and cli --mesh in
+        # 11 and 12. the mesh: sharded maps, sharded features and cli --mesh,
+        # then the sharded solvers, the sharded fleet and the runtime, in
         # spawned worlds on this one card
         t0 = time.perf_counter()
-        mr = run_mesh(paths, workdir)
+        mr = run_mesh(paths, workdir, p12_inputs)
         note = "all ranks share this one card: these are not multi-card figures"
         for wname in ("gloo2", "nccl1"):
             ranks = mr[wname]
@@ -3028,9 +3513,12 @@ def main(argv=None) -> int:
         checks["mesh torchrun cli: equal to the plain fp32 pipeline, within 2 levels and 99.9 % "
                "within 1 of the unsharded CLI"] = (
             w32 == 0 and worst <= 2 and within >= MIN_U8_EQUAL and wf == 0 and mr["fp32_plain_only"])
-        print(f"{card} | phase 11 (mesh) {time.perf_counter() - t0:.1f} s (spawned worlds "
+        print(f"{card} | phases 11 and 12 (mesh) {time.perf_counter() - t0:.1f} s (spawned worlds "
               f"{mr['worlds_s']:.1f} s)")
-        del mr
+        # 12. the sharded solvers, the sharded fleet and the runtime
+        p12_checks, launches["fleet_mesh"] = check_phase12(mr["p12"], fleet_ref, card)
+        checks.update(p12_checks)
+        del mr, p12_inputs
 
     # 7. pyramid maps and gradients
     launches["pyramid"], pyr_checks = run_pyramid(frame)
@@ -3131,6 +3619,9 @@ def main(argv=None) -> int:
             r["launches_serving"] = launches["serving"][r["name"]]
             r["launches_chunk"] = launches["chunk"][r["name"]]
             r["launches_checkpoint"] = launches["checkpoint"][r["name"]]
+        if r["name"] in PATH_KERNELS["serving"]:  # per sharded fleet run (40 ticks), per rank
+            r["launches_fleet_mesh"] = {k: [la[r["name"]] for la in per_rank]
+                                        for k, per_rank in launches["fleet_mesh"].items()}
         if r["name"] in MESH_KERNELS:  # per sharded call (CLI: per run), per rank
             r["launches_mesh"] = {
                 f"{w}_{path}": [la[r["name"]] for la in per_rank]

@@ -15,11 +15,15 @@ through host memory here: the device queue is drained, the tensor copied
 to the host, the collective run, the result copied back. The math stays on
 the card. Under NCCL the tensors go as they are. :data:`transport_stats`
 sums the staged calls' host seconds and bytes, so a run can state what
-share of a sharded call the staging took.
+share of a sharded call the staging took. Inside
+:func:`record_collectives` every collective, staged or not, is listed as
+(op, elements): what a run checks its collective count against (the
+reference read the same count from the compiled HLO).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -31,6 +35,9 @@ import torch.distributed as dist
 #: bytes sent from this rank.
 transport_stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
 
+# the list record_collectives installed (None: nothing is recorded)
+_recording: Optional[List[Tuple[str, int]]] = None
+
 # tags of the two halo directions: both neighbours are one rank at a space
 # size of 2, so a message says which halo it fills
 _TAG_TOP, _TAG_BOTTOM = 1, 2
@@ -38,6 +45,27 @@ _TAG_TOP, _TAG_BOTTOM = 1, 2
 
 def reset_transport_stats() -> None:
     transport_stats.update(calls=0, seconds=0.0, bytes=0)
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yields a list that gains one (op, elements of this rank's input)
+    entry per call of :func:`all_gather`, :func:`gather`,
+    :func:`all_reduce_sum`, :func:`exchange` (the elements sent) and
+    :func:`all_gather_object` (one object) made inside the block. A call
+    over no group (a group of one by convention) is no collective and is
+    not listed. Outside such a block nothing is recorded."""
+    global _recording
+    outer, _recording = _recording, []
+    try:
+        yield _recording
+    finally:
+        _recording = outer
+
+
+def _log(op: str, elements: int) -> None:
+    if _recording is not None:
+        _recording.append((op, elements))
 
 
 def staged(t: torch.Tensor, group: Optional[dist.ProcessGroup]) -> bool:
@@ -84,6 +112,7 @@ def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     ``group`` None is a group of one."""
     if group is None:
         return [t]
+    _log("all_gather", t.numel())
     with _Staging(t, group) as st:
         buf = st.host(t)
         out = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
@@ -95,6 +124,7 @@ def gather(t: torch.Tensor, dst: int, group) -> Optional[List[torch.Tensor]]:
     """Every rank's ``t`` on group rank ``dst`` (None on the others)."""
     if group is None:
         return [t]
+    _log("gather", t.numel())
     with _Staging(t, group) as st:
         buf = st.host(t)
         me = dist.get_rank(group)
@@ -107,6 +137,7 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``t``."""
     if group is None:
         return t
+    _log("all_reduce", t.numel())
     with _Staging(t, group) as st:
         buf = st.host(t)
         if buf is t:
@@ -122,6 +153,7 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
     (tensor, group-rank peer, tag), ``recvs`` (shape, group-rank peer, tag)
     of ``like``'s dtype; returns the received tensors on ``like``'s
     device."""
+    _log("exchange", sum(t.numel() for t, _, _ in sends))
     with _Staging(like, group) as st:
         ops, out = [], []
         for t, peer, tag in sends:
@@ -136,6 +168,18 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         return [st.back(b) for b in out]
+
+
+def all_gather_object(obj, group) -> list:
+    """Every rank's picklable ``obj``, in group-rank order (no staging: the
+    pickles travel on the host under gloo, on the current card under
+    NCCL)."""
+    if group is None:
+        return [obj]
+    _log("all_gather_object", 1)
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def _reflect101_top(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -109,3 +109,11 @@ def mesh_axis(mesh: DeviceMesh, name: Optional[str]) -> Tuple[int, int, Optional
     if name is None or name not in (mesh.mesh_dim_names or ()):
         return 1, 0, None
     return mesh.size(mesh.mesh_dim_names.index(name)), mesh.get_local_rank(name), mesh.get_group(name)
+
+
+def sharded_axis(mesh: DeviceMesh, name: str) -> Tuple[int, int, dist.ProcessGroup]:
+    """:func:`mesh_axis` of the axis a call shards over: a ValueError when
+    the mesh has no such axis (never a silent unsharded run)."""
+    if name not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh has no axis {name!r}: {mesh.mesh_dim_names}")
+    return mesh_axis(mesh, name)

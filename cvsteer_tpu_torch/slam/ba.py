@@ -15,6 +15,14 @@ stacked tensors are the natural layout.)
 Projection model: normalized pinhole u = (x/z, y/z). Gauge freedom is
 removed by freezing ``fixed_cameras``.
 
+Landmark sharding (parallel.ba_sharded): with ``group``, the process
+group of a mesh axis over which the landmarks are split, every rank holds
+its landmark slice and all the cameras. Each LM iteration then sums the
+camera side of the reduced system (the Schur term, its right-hand side,
+H_cc and b_c) over the ranks in one packed all-reduce, and each cost in one
+scalar all-reduce; every rank solves the same summed camera system, and
+the back-substitution stays local. ``group`` None is the single device.
+
 Both solvers run inside the device engine's captured CUDA graphs
 (slam.vo_device): every tensor they make is made on the device (no copy
 from host memory), and the ``*_ex`` factorizations leave their status on
@@ -23,9 +31,10 @@ the device, so nothing synchronizes the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cvsteer_tpu_torch.slam import se3
 from cvsteer_tpu_torch.utils.precision import precise
@@ -80,9 +89,20 @@ def residuals(state: BAState, problem: BAProblem) -> Tuple[torch.Tensor, torch.T
     return r, _weights(r, z, problem)
 
 
-def cost(state: BAState, problem: BAProblem) -> torch.Tensor:
+def _all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    # the transport lives in parallel/, whose package imports this module
+    # (and slam.posegraph, which takes this helper)
+    from cvsteer_tpu_torch.parallel.halo import all_reduce_sum
+
+    return all_reduce_sum(t, group)
+
+
+def cost(state: BAState, problem: BAProblem,
+         group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The robust cost; with ``group``, summed over the landmark shards."""
     r, w = residuals(state, problem)
-    return 0.5 * torch.sum(w * (r[..., 0] ** 2 + r[..., 1] ** 2))
+    c = 0.5 * torch.sum(w * (r[..., 0] ** 2 + r[..., 1] ** 2))
+    return c if group is None else _all_reduce_sum(c, group)
 
 
 def _jacobians(state: BAState, problem: BAProblem):
@@ -165,8 +185,12 @@ def _block_diag_add(S: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     return torch.where(diag, S + blocks[:, :, None, :], S)
 
 
-def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed):
-    """Schur complement: (S [C, 6, C, 6], b_s [C, 6], H_ll^-1 [L, 3, 3])."""
+def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed,
+                   group: Optional[dist.ProcessGroup] = None):
+    """Schur complement: (S [C, 6, C, 6], b_s [C, 6], H_ll^-1 [L, 3, 3]).
+    With ``group`` (landmark shards) the camera-side pieces are summed over
+    the ranks, in one all-reduce of C^2 36 + C 36 + 2 C 6 floats, before
+    the damping and the gauge."""
     C, L = W.shape[:2]
     Hinv = _inv3(H_ll, lam)
     WHinv = torch.einsum("clik,lkm->clim", W, Hinv)
@@ -174,6 +198,11 @@ def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed):
     B2 = W.permute(0, 2, 1, 3).reshape(C * 6, L * 3)
     S = -(A2 @ B2.T).reshape(C, 6, C, 6)
     bs_lm = (A2 @ b_l.reshape(L * 3)).reshape(C, 6)
+    if group is not None:
+        parts = (S, bs_lm, H_cc, b_c)
+        summed = _all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]), group)
+        S, bs_lm, H_cc, b_c = (a.view(p.shape) for a, p in zip(
+            summed.split([p.numel() for p in parts]), parts))
     eye6 = torch.eye(6, dtype=H_cc.dtype, device=H_cc.device)
     S = _block_diag_add(S, H_cc + lam * eye6)
     b_s = b_c - bs_lm
@@ -208,14 +237,17 @@ def apply_updates(state: BAState, dx_c, dX, fixed) -> BAState:
     return BAState(R=R_new, t=state.t + dx_c[:, 3:] * free, X=state.X + dX)
 
 
-def ba_step(state: BAState, problem: BAProblem, lam) -> Tuple[BAState, torch.Tensor]:
-    """One damped Gauss-Newton step: (candidate state, its cost)."""
+def ba_step(state: BAState, problem: BAProblem, lam,
+            group: Optional[dist.ProcessGroup] = None) -> Tuple[BAState, torch.Tensor]:
+    """One damped Gauss-Newton step: (candidate state, its cost). ``group``:
+    the landmark shards' process group (the camera system is summed over it
+    and solved on every rank; the landmark update stays local)."""
     H_cc, H_ll, W, b_c, b_l = _normal_equations(state, problem)
-    S, b_s, Hinv = reduced_system(H_cc, H_ll, W, b_c, b_l, lam, problem.fixed_cameras)
+    S, b_s, Hinv = reduced_system(H_cc, H_ll, W, b_c, b_l, lam, problem.fixed_cameras, group)
     dx_c = solve_reduced_dense(S, b_s)
     dX = back_substitute(W, Hinv, b_l, dx_c)
     new_state = apply_updates(state, dx_c, dX, problem.fixed_cameras)
-    return new_state, cost(new_state, problem)
+    return new_state, cost(new_state, problem, group)
 
 
 @precise()
@@ -273,15 +305,18 @@ def bundle_adjust(
     *,
     iterations: int = 20,
     lam0: float = 1e-4,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[BAState, BAStats]:
     """Levenberg-Marquardt BA with a fixed iteration count: a rejected step
     raises lambda x10 and keeps the old state; an accepted one lowers it
-    x(1/3)."""
-    c0 = cost(state, problem)
+    x(1/3). ``group``: the process group of the mesh axis the landmarks
+    are sharded over (parallel.ba_sharded); every rank then takes the same
+    decisions on the summed costs."""
+    c0 = cost(state, problem, group)
     cur = c0
     lam = torch.full((), lam0, dtype=state.X.dtype, device=state.X.device)
     for _ in range(iterations):
-        cand, cand_cost = ba_step(state, problem, lam)
+        cand, cand_cost = ba_step(state, problem, lam, group)
         accept = cand_cost < cur
         state = BAState(*(torch.where(accept, a, b) for a, b in zip(cand, state)))
         cur = torch.where(accept, cand_cost, cur)

@@ -9,6 +9,14 @@ pass (``torch.func.jvp``, vmapped) of the residual over the 12 tangent
 basis directions, as the reference takes them with ``jax.linearize``. The
 LM loop is a Python loop over device tensors: no host sync per iteration.
 
+Edge sharding (parallel.posegraph_sharded): with ``group``, the process
+group of the mesh axis the edges are split over, each rank holds its slice
+of the edges and every pose. The PCG solver then sums over the ranks the
+right-hand side and the Jacobi blocks (one packed all-reduce an LM
+iteration), each Hv product (one [P, 6] all-reduce a CG iteration) and each
+cost (a scalar); the CG vectors are replicated, so their dot products need
+no collective.
+
 Pose convention: T_i = (R_i, t_i), world -> camera-i. An edge (i, j)
 measures Z_ij ~ T_j o T_i^{-1}; its residual is log(Z_ij^{-1} o T_j o
 T_i^{-1}) as a 6-vector (omega, v).
@@ -19,9 +27,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cvsteer_tpu_torch.slam import lie_lanes as ll
 from cvsteer_tpu_torch.slam import se3
+from cvsteer_tpu_torch.slam.ba import _all_reduce_sum
 from cvsteer_tpu_torch.utils.precision import precise
 
 
@@ -181,12 +191,14 @@ def _dense_core(Ji, Jj, r, w, g_i, g_j, fixed, lam, *, dof):
     return dx.reshape(dof, P).T
 
 
-def _pcg_core(Ji, Jj, r, w, g_i, g_j, fixed, lam, cg_iterations: int, *, dof):
+def _pcg_core(Ji, Jj, r, w, g_i, g_j, fixed, lam, cg_iterations: int, *, dof, group=None):
     """Damped GN update dx [P, dof] by matrix-free Jacobi-preconditioned CG
     (``cg_iterations`` fixed): the normal matrix is never built; each Hv
     product applies the edge Jacobians and scatters back through a one-hot
     ``[2E, P]`` matmul. The SE(3) solver calls it with dof 6, the Sim(3) one
-    with dof 7."""
+    with dof 7. ``group``: the edge shards' process group; b and the Jacobi
+    blocks are summed over it once, each Hv product once per CG
+    iteration."""
     P = fixed.shape[0]
     E = g_i.shape[0]
     freeP = (~fixed).to(r.dtype)[:, None]  # [P, 1]
@@ -205,6 +217,9 @@ def _pcg_core(Ji, Jj, r, w, g_i, g_j, fixed, lam, cg_iterations: int, *, dof):
     Di = torch.einsum("eac,ead->ecd", Ji, Ji) * w[:, None, None]
     Dj = torch.einsum("eac,ead->ecd", Jj, Jj) * w[:, None, None]
     Dm = both(Di.reshape(E, dof * dof), Dj.reshape(E, dof * dof)).reshape(P, dof, dof)
+    if group is not None:
+        summed = _all_reduce_sum(torch.cat([b.reshape(-1), Dm.reshape(-1)]), group)
+        b, Dm = summed[: P * dof].view(P, dof), summed[P * dof:].view(P, dof, dof)
     eye = torch.eye(dof, dtype=r.dtype, device=r.device)
     D_inv, _ = torch.linalg.inv_ex(Dm + (lam + 1e-8) * eye)
 
@@ -217,6 +232,8 @@ def _pcg_core(Ji, Jj, r, w, g_i, g_j, fixed, lam, cg_iterations: int, *, dof):
         u = (torch.einsum("eac,ec->ea", Ji, rows[:E])
              + torch.einsum("eac,ec->ea", Jj, rows[E:])) * wc
         out = both(torch.einsum("eac,ea->ec", Ji, u), torch.einsum("eac,ea->ec", Jj, u))
+        if group is not None:
+            out = _all_reduce_sum(out, group)
         return (out + lam * Vm) * freeP
 
     x = torch.zeros_like(b)
@@ -260,33 +277,34 @@ def optimize_pose_graph(
     lam0: float = 1e-6,
     solver: str = "dense",
     cg_iterations: int = 50,
-    axis_name: Optional[str] = None,
+    group: Optional[dist.ProcessGroup] = None,
     huber_delta: float = 0.0,
     robust_kernel: str = "huber",
 ) -> Tuple[Poses, PGOStats]:
     """LM pose-graph optimization with a fixed iteration count.
 
     solver='dense': exact Cholesky of the [6P, 6P] system (small P);
-    solver='pcg': matrix-free Jacobi-PCG (large P). ``axis_name`` (edges
-    sharded over a mesh axis) belongs to parallel/posegraph_sharded, which
-    is not ported yet."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "optimize_pose_graph(axis_name=...): the edge-sharded pose graph "
-            "(parallel/posegraph_sharded) is not ported yet"
-        )
+    solver='pcg': matrix-free Jacobi-PCG (large P). ``group``: the process
+    group of the mesh axis the edges are sharded over
+    (parallel.posegraph_sharded); it takes solver='pcg', and every rank
+    takes the same decisions on the summed costs."""
+    if group is not None and solver != "pcg":
+        raise ValueError(f"optimize_pose_graph(group=...) shards the edges of solver='pcg' "
+                         f"only, not solver={solver!r}")
 
     def step(ps, lam):
         Ji, Jj, r = _edge_jacobians(_residual_fn(ps, graph), 6, ps.t)
         w = _robust_weight(r, graph.weight, huber_delta, robust_kernel)
         if solver == "pcg":
-            dx = _pcg_core(Ji, Jj, r, w, graph.i, graph.j, graph.fixed, lam, cg_iterations, dof=6)
+            dx = _pcg_core(Ji, Jj, r, w, graph.i, graph.j, graph.fixed, lam, cg_iterations, dof=6,
+                           group=group)
         else:
             dx = _dense_core(Ji, Jj, r, w, graph.i, graph.j, graph.fixed, lam, dof=6)
         return _apply(ps, dx, graph.fixed)
 
     def cost_fn(ps):
-        return cost(ps, graph, huber_delta, robust_kernel)
+        c = cost(ps, graph, huber_delta, robust_kernel)
+        return c if group is None else _all_reduce_sum(c, group)
 
     c0 = cost_fn(poses)
     ps, cf, lam = _lm(poses, c0, step, cost_fn, iterations, lam0)

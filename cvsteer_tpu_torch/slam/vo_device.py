@@ -1514,7 +1514,7 @@ def _stacked(fn, names):
 
 
 def _fleet_promote(ms: DeviceMap, do_promote, io: _FleetIO, prio_offset, *, iterations,
-                   huber_delta, tri_angle, promote_cap):
+                   huber_delta, tri_angle, promote_cap, gdo=None, lo=0):
     """The batched promotion, optionally compacted to a sub-batch:
     (carried fields of the promoted stack, served [S], comp).
 
@@ -1528,7 +1528,13 @@ def _fleet_promote(ms: DeviceMap, do_promote, io: _FleetIO, prio_offset, *, iter
     ``comp [PB]`` is the sub-batch's stream ids (-1 pads). Streams beyond
     the cap are deferred: their promotion conditions persist, and every
     requesting stream is served within ceil(S / PB) ticks. ``served``, not
-    the raw flag, says whose promotion ran."""
+    the raw flag, says whose promotion ran.
+
+    A sharded fleet's rank passes ``gdo`` [S_all], the requests of the whole
+    fleet (gathered between FT and FP), and ``lo``, its first stream: the
+    cap and the rotated order stay the whole fleet's (a stream is served
+    when fewer than PB requests come before it), and the rank compacts its
+    served streams into a sub-batch of min(PB, S) rows."""
     S = do_promote.shape[0]
     names = _carried(ms)
     dev = do_promote.device
@@ -1543,13 +1549,23 @@ def _fleet_promote(ms: DeviceMap, do_promote, io: _FleetIO, prio_offset, *, iter
 
     fields = tuple(getattr(ms, f) for f in names)
     ids = torch.arange(S, dtype=torch.int32, device=dev)
-    if not promote_cap or promote_cap >= S:
-        out = _stacked(one, names)(fields, do_promote, *args)
-        return out, do_promote, torch.where(do_promote, ids, -1)
-    PB = int(promote_cap)
-    order = torch.remainder(ids - prio_offset, S)
-    rank = (do_promote[None, :] & (order[None, :] < order[:, None])).sum(1, dtype=torch.int32)
-    served = do_promote & (rank < PB)
+    if gdo is None:
+        if not promote_cap or promote_cap >= S:
+            out = _stacked(one, names)(fields, do_promote, *args)
+            return out, do_promote, torch.where(do_promote, ids, -1)
+        PB = int(promote_cap)
+        order = torch.remainder(ids - prio_offset, S)
+        rank = (do_promote[None, :] & (order[None, :] < order[:, None])).sum(1, dtype=torch.int32)
+        served = do_promote & (rank < PB)
+    else:
+        S_all = gdo.shape[0]
+        order_all = torch.remainder(torch.arange(S_all, dtype=torch.int32, device=dev) - prio_offset,
+                                    S_all)
+        order = order_all[lo: lo + S]
+        before = (gdo[None, :] & (order_all[None, :] < order[:, None])).sum(1, dtype=torch.int32)
+        served = do_promote & (before < promote_cap)
+        PB = min(int(promote_cap), S)
+        rank = (served[None, :] & (order[None, :] < order[:, None])).sum(1, dtype=torch.int32)
     slots = torch.full((S + 1,), S, dtype=torch.int32, device=dev).index_put(
         (torch.where(served, rank, S).long(),), ids
     )
@@ -1606,8 +1622,16 @@ def _fleet_track_half(ms: DeviceMap, io: _FleetIO, aux: Optional[_FleetAux], *, 
     io.t_out.copy_(torch.cat(parts, 1))
 
 
+def _promote_requests(io: _FleetIO, aux: Optional[_FleetAux]) -> torch.Tensor:
+    """[S] the streams whose FT asked for a promotion that FP may run: the
+    stepped ones, and pipelined, not held off by the previous tick."""
+    do = io.promote & io.active
+    return do if aux is None else do & ~aux.block
+
+
 def _fleet_promote_half(ms: DeviceMap, io: _FleetIO, aux: Optional[_FleetAux], *, iterations,
-                        huber_delta, tri_angle, promote_cap, ground_target=0.0) -> None:
+                        huber_delta, tri_angle, promote_cap, ground_target=0.0, gdo=None,
+                        lo=0) -> None:
     """FP: the batched (or capped) promotion of the streams whose FT asked
     for one, written in place into the stacked buffers, and the fetch rows
     into ``io.p_out``. Pipelined (``aux`` given): promotion is held off for
@@ -1615,14 +1639,13 @@ def _fleet_promote_half(ms: DeviceMap, io: _FleetIO, aux: Optional[_FleetAux], *
     promoted rows' features, the control state's update and the tick's
     whole fetch (``io.pipe_out``). As in the reference's fleet there is no
     in-step ground controller (``ground_target`` unused): a fleet row takes
-    the host's ground path."""
+    the host's ground path. ``gdo``, ``lo``: a sharded fleet's global
+    requests and first stream (_fleet_promote)."""
     S = io.active.shape[0]
-    do = io.promote & io.active
-    if aux is not None:
-        do = do & ~aux.block
+    do = _promote_requests(io, aux)
     out, served, comp = _fleet_promote(
         ms, do, io, io.prio, iterations=iterations, huber_delta=huber_delta,
-        tri_angle=tri_angle, promote_cap=promote_cap,
+        tri_angle=tri_angle, promote_cap=promote_cap, gdo=gdo, lo=lo,
     )
     for f, src in zip(_carried(ms), out):
         getattr(ms, f).copy_(src)
@@ -1731,6 +1754,23 @@ class DeviceVOFleet:
     (loss, closure, the speed clamp, a ground correction) copy the row out
     into the engine's own buffers, run the host path there and copy it
     back.
+
+    The mesh (``mesh``, ``mesh_axis``): the stream axis sharded over the n
+    ranks of a mesh axis, one process a rank. Rank r owns streams
+    ``[r S/n, (r + 1) S/n)``: its ``engines``, ``active`` and ``stack``
+    hold those S/n streams on its device, with FT and FP of its own (2
+    captures a rank), and only its engines bootstrap or take host paths.
+    The step has no cross-stream dataflow, so an uncapped tick needs no
+    collective. With ``promote_cap`` the cap and the rotating origin stay
+    the whole fleet's: each tick every rank's requests are all-gathered
+    between FT and FP (on the card: under NCCL queued on the stream with
+    no host wait; under gloo staged through the host, one wait a tick
+    before FP), and every rank ranks the same [S] requests.
+    :meth:`step` takes all S frames on every rank, :meth:`step_batched`
+    only the rank's S/n rows; :meth:`sync_host`, :meth:`finalize` and
+    :attr:`states` keep their meaning for every stream (the owner sends the
+    state), so they are collectives: every rank calls them, and step, in
+    the same order.
     """
 
     def __init__(self, config: VOConfig = VOConfig(), n_streams: int = 8, mesh=None,
@@ -1742,24 +1782,45 @@ class DeviceVOFleet:
         a skipped frame. ``promote_cap``: promote at most this many streams
         a tick (0: uncapped); the rest defer a tick. ``pipeline_depth``
         (step_batched): ticks in flight before the host reads results.
-        ``mesh`` (the stream axis sharded over devices) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a fleet sharded over a mesh (axis {mesh_axis!r}) needs the multi-device "
-                "layer parallel/, which is not ported yet"
-            )
+        ``mesh``: a parallel.make_mesh mesh whose axis ``mesh_axis`` shards
+        the streams (see the class docstring); the fleet then runs on this
+        rank's device, and ``device`` is not read."""
         self.config = config
         self.promote_cap = int(promote_cap)
+        self.n_streams = int(n_streams)
+        # the mesh: (ranks, this rank's first stream, the axis's group)
+        self._shard = None
+        n_local = self.n_streams
+        if mesh is not None:
+            from cvsteer_tpu_torch.parallel.mesh import rank_device, sharded_axis
+
+            n, r, group = sharded_axis(mesh, mesh_axis)
+            if n_streams % n != 0:
+                raise ValueError(
+                    f"n_streams={n_streams} must divide over "
+                    f"mesh axis {mesh_axis}={n}"
+                )
+            n_local = n_streams // n
+            self._shard = (n, r * n_local, group)
+            device = rank_device(mesh)
+        # the capped promotion of a sharded fleet ranks the whole fleet's
+        # requests, gathered each tick (_share_requests)
+        self._share = self._shard is not None and 0 < self.promote_cap < self.n_streams
         # rotating fair-serve origin of the capped promotion
         self._promote_rr = 0
         # host phase wall profile: set to {} to record cumulative seconds
         # per tick phase (assemble, dispatch, copy_async, process, ...)
         self.host_profile = None
-        self.engines = [DeviceVO(config, device=device, capture=False) for _ in range(n_streams)]
+        self.engines = [DeviceVO(config, device=device, capture=False) for _ in range(n_local)]
         self.device = self.engines[0].device if self.engines else torch.device(device)
+        if self._share:
+            # the gathered requests FP ranks, and the origin kept on the
+            # device (a rank with no stream stepped still joins the gather)
+            self._gdo = torch.zeros(self.n_streams, dtype=torch.bool, device=self.device)
+            self._rr_dev = torch.zeros((), dtype=torch.int32, device=self.device)
         self.stack: Optional[DeviceMap] = None
         self.aux: Optional[_FleetAux] = None
-        self.active = np.zeros(n_streams, bool)
+        self.active = np.zeros(n_local, bool)
         self._pipeline = bool(pipeline)
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.captures = 0
@@ -1786,13 +1847,43 @@ class DeviceVOFleet:
 
     @property
     def states(self):
-        return [e.state for e in self.engines]
+        """Every stream's VOState (on a mesh: a collective, each rank
+        sending its own streams')."""
+        own = [e.state for e in self.engines]
+        if self._shard is None:
+            return own
+        from cvsteer_tpu_torch.parallel.halo import all_gather_object
+
+        return [st for part in all_gather_object(own, self._shard[2]) for st in part]
+
+    def _owned(self, i: int) -> Optional[int]:
+        """Stream i's index among this rank's engines (None: another rank's)."""
+        if self._shard is None:
+            return i
+        if not -self.n_streams <= i < self.n_streams:
+            raise IndexError(f"stream {i} of {self.n_streams}")
+        k = i % self.n_streams - self._shard[1]
+        return k if 0 <= k < len(self.engines) else None
+
+    def _from_owner(self, i: int, fn) -> VOState:
+        """``fn(local index)`` on stream i's rank, its result on every rank
+        (a collective on a mesh)."""
+        k = self._owned(i)
+        if self._shard is None:
+            return fn(k)
+        from cvsteer_tpu_torch.parallel.halo import all_gather_object
+
+        got = all_gather_object(None if k is None else fn(k), self._shard[2])
+        return got[i % self.n_streams // len(self.engines)]
 
     # -- the stack and its buffers ------------------------------------------
 
     def _kwargs(self):
         track, promote = _step_kwargs(self.config)
-        return track, dict(promote, promote_cap=self.promote_cap)
+        promote = dict(promote, promote_cap=self.promote_cap)
+        if self._share:
+            promote.update(gdo=self._gdo, lo=self._shard[1])
+        return track, promote
 
     def _ensure_stack(self, template: DeviceMap) -> None:
         """Allocate the stack, the buffers and the host rings at the first
@@ -1803,7 +1894,7 @@ class DeviceVOFleet:
         N, D = (int(n) for n in template.kf_desc.shape)
         W = cfg.window
         M = cfg.loop_max_candidates if cfg.loop_closure else 0
-        PB = self.promote_cap if 0 < self.promote_cap < S else S
+        PB = min(self.promote_cap, S) if 0 < self.promote_cap < self.n_streams else S
 
         def z(shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -1905,9 +1996,7 @@ class DeviceVOFleet:
         eng._host_dirty = True
         self.active[i] = False
 
-    def sync_host(self, i: int) -> VOState:
-        """Pull stream i's device state into its host mirror."""
-        self._flush()
+    def _sync_local(self, i: int) -> VOState:
         if self.active[i]:
             self._gather_out(i)
             state = self.engines[i].sync_host()
@@ -1915,20 +2004,55 @@ class DeviceVOFleet:
             return state
         return self.engines[i].sync_host()
 
+    def sync_host(self, i: int) -> VOState:
+        """Pull stream i's device state into its host mirror (on a mesh, a
+        collective: the owner's state on every rank)."""
+        self._flush()
+        return self._from_owner(i, self._sync_local)
+
     def finalize(self, i: int) -> VOState:
-        """Stream i's finalized VOState."""
-        self.sync_host(i)
-        return hostvo.finalize(self.engines[i].state)
+        """Stream i's finalized VOState (on a mesh, a collective)."""
+        self._flush()
+
+        def local(k):
+            self._sync_local(k)
+            return hostvo.finalize(self.engines[k].state)
+
+        return self._from_owner(i, local)
 
     # -- the tick -----------------------------------------------------------
 
     def step(self, frames) -> None:
-        """Advance every stream by one frame (``frames[i]`` may be None)."""
-        if len(frames) != len(self.engines):
-            raise ValueError(f"{len(frames)} frames for {len(self.engines)} streams")
+        """Advance every stream by one frame (``frames[i]`` may be None); on
+        a mesh every rank passes all S frames and steps its own."""
+        if len(frames) != self.n_streams:
+            raise ValueError(f"{len(frames)} frames for {self.n_streams} streams")
+        if self._shard is not None:
+            lo = self._shard[1]
+            frames = list(frames[lo: lo + len(self.engines)])
         if self._pipeline:
             return self._step_pipelined(frames)
         return self._step_classic(frames)
+
+    def _share_requests(self, ticked: bool) -> None:
+        """A sharded capped fleet, every tick on every rank, between FT and
+        FP: all-gather each rank's promotion requests (none when it stepped
+        no stream) into the [S] mask FP ranks, take the tick's fair-serve
+        origin and advance it when any rank stepped (as the single fleet
+        does, on the device: no host wait under NCCL)."""
+        from cvsteer_tpu_torch.parallel.halo import all_gather
+
+        S = len(self.engines)
+        mine = torch.zeros(S + 1, dtype=torch.int32, device=self.device)
+        if ticked:
+            mine[:S] = _promote_requests(self._io, self.aux).to(torch.int32)
+            mine[S] = 1
+        every = torch.stack(all_gather(mine, self._shard[2]))  # [n, S + 1]
+        self._gdo.copy_(every[:, :S].reshape(-1) > 0)
+        if self._io is not None:
+            self._io.prio.copy_(self._rr_dev)
+        step = torch.where(every[:, S].any(), self.promote_cap, 0)
+        self._rr_dev.copy_(torch.remainder(self._rr_dev + step, self.n_streams))
 
     def _enter(self, frames) -> Optional[np.ndarray]:
         """Bootstrap and (re)entry, the host path until an engine has a map;
@@ -1963,11 +2087,14 @@ class DeviceVOFleet:
         act = self._active_host[slot]
         act.numpy()[:] = tick
         io.active.copy_(act, non_blocking=True)
-        io.prio.fill_(self._advance_rr(len(self.engines)))
+        if not self._share:  # else _share_requests sets it
+            io.prio.fill_(self._advance_rr(self.n_streams))
 
     def _step_classic(self, frames) -> None:
         tick = self._enter(frames)
         if tick is None:
+            if self._share:
+                self._share_requests(False)
             return
         cfg = self.config
         sz = self._sizes
@@ -1983,6 +2110,8 @@ class DeviceVOFleet:
         io.pose.copy_(self._pose_host, non_blocking=True)
         io.force.copy_(self._force_host, non_blocking=True)
         self._run_half(0)
+        if self._share:
+            self._share_requests(True)
         self._t_host.copy_(io.t_out, non_blocking=True)
         _wait(self.device)  # fetch 1: every stream's T row
         t_rows = self._t_host.numpy().copy()
@@ -2039,6 +2168,8 @@ class DeviceVOFleet:
     def _step_pipelined(self, frames) -> None:
         tick = self._enter(frames)
         if tick is None:
+            if self._share:
+                self._share_requests(False)
             self._flush()
             return
         t_phase = time.perf_counter() if self.host_profile is not None else 0
@@ -2057,6 +2188,8 @@ class DeviceVOFleet:
         self._slot = (slot + 1) % len(self._ring)
         self._put_features(*feats, tick, slot)
         self._run_half(0)
+        if self._share:
+            self._share_requests(True)
         self._run_half(1)
         self._ring[slot].copy_(self._io.pipe_out, non_blocking=True)
         event = None
@@ -2079,7 +2212,8 @@ class DeviceVOFleet:
         mirrors get feature rows only for streams that promote (in the
         tick's fetch) or lose tracking (copied out of the batch). Keeps up
         to ``pipeline_depth`` ticks in flight. Every stream must be active
-        (bootstrap through :meth:`step`)."""
+        (bootstrap through :meth:`step`). On a mesh each rank passes only
+        its own S/n rows, as its front end makes them."""
         if not self._pipeline:
             raise ValueError("step_batched needs pipeline=True")
         if self.stack is None or not self.active.all():

@@ -2,8 +2,8 @@
 
 - Every name a cvsteer_tpu ``__init__`` imports from one of its modules
   (read with ``ast``) imports from the counterpart module of
-  cvsteer_tpu_torch, and the port's subpackage re-exports it too; the
-  parallel/ names of the next slice are listed below.
+  cvsteer_tpu_torch, and the port's subpackage re-exports it too (none is
+  left for a later slice).
 - Each function this surface newly exposes holds to its JAX counterpart on
   seeded numpy inputs: the cases tests/test_filters_g2.py:41,
   test_native_codec.py:57, test_posegraph.py:39 and test_ba.py:84 run in
@@ -22,8 +22,8 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-#: parallel/ names the port leaves for its next slice (ROADMAP.md §1)
-NOT_YET = {"bundle_adjust_sharded", "optimize_pose_graph_sharded"}
+#: names the port leaves for a later slice (none: the port is complete)
+NOT_YET = set()
 
 
 def _exports():

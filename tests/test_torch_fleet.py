@@ -201,6 +201,29 @@ def test_torch_fleet_promote_matches_jax(cap):
             np.testing.assert_array_equal(tm[f].numpy(), np.asarray(getattr(jms, f)))
         for f in ("kf_R", "kf_t"):
             np.testing.assert_allclose(tm[f].numpy(), np.asarray(getattr(jms, f)), atol=1e-3)
+        if not cap:
+            continue
+        # a sharded fleet: each half of the stack is one rank's, ranked
+        # against the whole fleet's requests (gdo) from its first stream (lo)
+        half, hserved = S // 2, []
+        for lo in (0, half):
+            sl = slice(lo, lo + half)
+            hout, hs, _ = tvd._fleet_promote(
+                type(tstack)(*(None if a is None else a[sl] for a in tstack)),
+                torch.from_numpy(mask[sl]),
+                SimpleNamespace(**{f: a[sl] for f, a in vars(io).items()}),
+                torch.tensor(offset, dtype=torch.int32), iterations=1,
+                huber_delta=BA["huber_delta"], tri_angle=0.35, promote_cap=cap,
+                gdo=torch.from_numpy(mask), lo=lo,
+            )
+            hserved.append(hs.numpy())
+            hm = dict(zip(tvd._carried(tstack), hout))
+            for f in ("kf_live", "kf_fvalid"):
+                np.testing.assert_array_equal(hm[f].numpy(), np.asarray(getattr(jms, f))[sl])
+            for f in ("kf_R", "kf_t"):
+                np.testing.assert_allclose(hm[f].numpy(), np.asarray(getattr(jms, f))[sl],
+                                           atol=1e-3)
+        np.testing.assert_array_equal(np.concatenate(hserved), np.asarray(jserved))
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +373,12 @@ def test_torch_fleet_promote_cap(world, runs):
 
 
 def test_torch_fleet_refusals():
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tvd.DeviceVOFleet(_cfg(), n_streams=2, mesh=object(), device="cpu")
+    # a mesh whose axis does not divide the streams: the reference's words
+    mesh = SimpleNamespace(mesh_dim_names=("data",), size=lambda dim: 2,
+                           get_local_rank=lambda name: 0, get_group=lambda name: None,
+                           device_type="cpu")
+    with pytest.raises(ValueError, match=r"^n_streams=3 must divide over mesh axis data=2$"):
+        tvd.DeviceVOFleet(_cfg(), n_streams=3, mesh=mesh, device="cpu")
     flt = tvd.DeviceVOFleet(_cfg(), n_streams=2, device="cpu")
     with pytest.raises(ValueError, match="pipeline=True"):
         flt.step_batched(None, None, None)

@@ -4,9 +4,8 @@
   (checked in a fresh interpreter: this test process has jax loaded).
 - chip_smoke.py fails, printing no result line, where there is no CUDA
   device, and in a directory that holds nothing else of the repository.
-- Entry points and options that are not ported yet raise instead of
-  silently doing something else; the entry points that default to the card
-  refuse to run without one.
+- Every entry point and option is ported; the entry points that default
+  to the card refuse to run without one.
 - The numpy-only image reader decodes the committed fixture exactly as
   OpenCV does.
 """

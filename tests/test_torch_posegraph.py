@@ -162,8 +162,8 @@ def test_torch_robust_kernels_match_jax(kernel):
 def test_torch_pose_graph_padding(se3_world):
     """Bucket padding keeps the cost, the real edges' residuals and the
     solution, dense and PCG (the check tests/test_lie_lanes.py makes of the
-    reference's padding); the edge-sharded path raises until parallel/ is
-    ported."""
+    reference's padding); with a process group (the edge-sharded path)
+    the dense solver raises."""
     init, graph = se3_world
     tp_, tg = convert.poses(init, "cpu"), convert.pose_graph(graph, "cpu")
     pp, pg_, P_real = tpad(tp_, tg)
@@ -178,8 +178,10 @@ def test_torch_pose_graph_padding(se3_world):
     ref, _ = tpg.optimize_pose_graph(tp_, tg, **kw)
     pad, _ = tpg.optimize_pose_graph(pp, pg_, **kw)
     np.testing.assert_allclose(pad.t.numpy()[:P_real], ref.t.numpy(), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="posegraph_sharded"):
-        tpg.optimize_pose_graph(tp_, tg, axis_name="edges")
+    # group None is the single-device path (held above and in the other
+    # tests); the edge-sharded path takes the PCG solver only
+    with pytest.raises(ValueError, match="solver='pcg' only, not solver='dense'"):
+        tpg.optimize_pose_graph(tp_, tg, group=object())
 
 
 @pytest.fixture(scope="module")
