@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
              stated tolerance (B, C, D, E′ and F: bit for bit); time kernel, plain
              version and, where one PyTorch call computes the same function,
              that call, two ways: device_ms, the device time of 25 calls
-             inside torch.profiler over 25, and call_ms, CUDA events around
+             inside torch.profiler over 25 (a window padded with idle time
+             that must see every launch), and call_ms, CUDA events around
              one call on an idle card (median of 25: what a caller that
              waits pays, host work included); compute each kernel's bound
              from the shapes. Kernel A is also timed with the G4/H4 bank,
@@ -41,8 +42,10 @@ Phases (any failure exits non-zero and prints no result line):
              promotion on the device, B, C, D one launch per frame, and exactly 2 CUDA
              graphs captured, none after the first upload; print frames/s,
              the features / track / keyframe / capture spans, the device ms
-             of one replay of T (track) and of P (promote), and the same
-             profiled window as phase 5 for this engine.
+             of one replay of T (track) and of P (promote) (device_ms over
+             25 replays, each held to the device events of one eager run of
+             its half), and the same profiled window as phase 5 for this
+             engine, each graph launch in it held to T's or P's count.
     chunks — the same 40 frames through DeviceVO.issue_chunk /
              complete_chunk, CHUNK (8) frames a chunk, each chunk's
              features from one batched extract_features: keyframes and
@@ -297,8 +300,8 @@ def timings(kernel, names, per_call, plain, library=None, plain_reps=25) -> dict
     is the sum of the calls' medians, a device time that of the calls
     together. ``plain_reps``: calls per window of the plain version (its
     hundreds of small kernels per call make the profiler's windows slow).
-    An events-seen count of 0 marks a device time that device_ms took with
-    CUDA events because the profiler lost every window."""
+    Every window must see each of its launches (device_ms raises
+    otherwise), so the events-seen counts are exact."""
     from cvsteer_tpu_torch.utils.profiling import call_ms, device_ms
 
     run = lambda calls: (lambda: [c() for c in calls])  # noqa: E731
@@ -811,22 +814,22 @@ def _profile_frames(seed: int):
         return tuple(pool.map(seq.render, range(n)))
 
 
-def profile_vo(seed: int, engine: str = "host") -> dict:
+def profile_vo(seed: int, engine: str = "host", graphs=()) -> dict:
     """The VO's device picture: a second run of the default VO (``engine``
     "host", slam.vo, or "device", slam.vo_device), warmed up over
     VO_PROFILE_WARM frames, then VO_PROFILE_FRAMES frames inside
-    torch.profiler. Returns device
+    torch.profiler, a window that must see every launch and, for each graph
+    launch, the events of one of ``graphs`` (T's and P's per replay; the
+    host engine launches none). Returns device
     kernels and copies/memsets per frame, the device busy share of the
     window's host-clock time, the mean ``features`` span and the device ms
     per frame of kernels B, C and D."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cvsteer_tpu_torch.slam.vo import VOConfig, init_vo, process_image
     from cvsteer_tpu_torch.slam.vo_device import DeviceVO
     from cvsteer_tpu_torch.utils.metrics import StepTimer
-    from cvsteer_tpu_torch.utils.profiling import device_time_attr, kernel_named
+    from cvsteer_tpu_torch.utils.profiling import device_window
 
     cfg = VOConfig()
     n = VO_PROFILE_WARM + VO_PROFILE_FRAMES
@@ -841,30 +844,23 @@ def profile_vo(seed: int, engine: str = "host") -> dict:
         step(frames[k])
     state.timer = timer = StepTimer(sync=torch.cuda.synchronize)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_window() as win:
         t0 = time.perf_counter()
         for k in range(VO_PROFILE_WARM, n):
             step(frames[k])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    attr = device_time_attr()
-    dev = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:  # the union of the device intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    win.check(graphs=graphs)
+    kernels_n, copies_n, busy = _busy(win, wall_s)
     names = {"pyr_down": "pyr_down_kernel", "g2_features_full": "g2_features_kernel",
              "desc_sample": "desc_sample_kernel"}
-    per_kernel = {k: sum(getattr(e, attr) for e in dev if kernel_named(e.name, v)) / 1e3 / VO_PROFILE_FRAMES
+    per_kernel = {k: sum(e.duration_ns() for e in win.named((v,))) / 1e6 / VO_PROFILE_FRAMES
                   for k, v in names.items()}
     return dict(
-        kernels_per_frame=(len(dev) - len(copies)) / VO_PROFILE_FRAMES,
-        copies_per_frame=len(copies) / VO_PROFILE_FRAMES,
-        busy_share=busy_us / (wall_s * 1e6),
+        kernels_per_frame=kernels_n / VO_PROFILE_FRAMES,
+        copies_per_frame=copies_n / VO_PROFILE_FRAMES,
+        launches=len(win.launches), graph_launches=len(win.graph_events()),
+        busy_share=busy,
         wall_ms_per_frame=1e3 * wall_s / VO_PROFILE_FRAMES,
         features_ms=timer.means_ms().get("features", float("nan")),
         frontend_kernel_ms=per_kernel,
@@ -884,7 +880,7 @@ def run_vo_device(n_frames: int, seed: int, host: dict) -> dict:
     from cvsteer_tpu_torch.slam.vo import VOConfig
     from cvsteer_tpu_torch.slam.vo_device import DeviceVO
     from cvsteer_tpu_torch.utils.metrics import StepTimer
-    from cvsteer_tpu_torch.utils.profiling import call_ms, device_ms
+    from cvsteer_tpu_torch.utils.profiling import call_ms
 
     cfg = VOConfig()
     K = cfg.intrinsics
@@ -924,8 +920,8 @@ def run_vo_device(n_frames: int, seed: int, host: dict) -> dict:
     replay = {}
     for name, half in (("T", 0), ("P", 1)):
         fn = lambda h=half: vo._run_half(h)  # noqa: E731
-        ms, seen = device_ms(fn)
-        replay[name] = dict(device_ms=ms, events_per_replay=seen, call_ms=call_ms(fn))
+        eager = lambda h=half: vo._run_half(h, eager=True)  # noqa: E731
+        replay[name] = dict(**replay_ms(fn, eager), call_ms=call_ms(fn))
     return dict(
         state=state, launches=launches, ate=ate, twin_ate=twin, gate=ate_bound(seq, state, cfg),
         wall_s=wall, vo_s=timer.total_s["vo"], means_ms=timer.means_ms(), frames=frames,
@@ -936,6 +932,29 @@ def run_vo_device(n_frames: int, seed: int, host: dict) -> dict:
 
 
 # --- phase 5c: serving -------------------------------------------------------
+
+
+def graph_kernels(eager) -> int:
+    """The device events one replay of a CUDA graph makes: those of one
+    eager run of the half it captured (``eager``), in a window that must
+    see every launch (a graph replays the kernels, memsets and copies that
+    its capture recorded)."""
+    from cvsteer_tpu_torch.utils.profiling import device_window
+
+    with device_window() as win:
+        eager()
+    win.check()
+    return len(win.events)
+
+
+def replay_ms(replay, eager, reps: int = 25) -> dict:
+    """A CUDA graph's replay: device ms per replay and device events per
+    replay (utils.profiling.device_ms over ``reps`` replays, which must
+    show graph_kernels(eager) events each)."""
+    from cvsteer_tpu_torch.utils.profiling import device_ms
+
+    ms, seen = device_ms(replay, reps=reps, events=graph_kernels(eager))
+    return dict(device_ms=ms, events_per_replay=int(seen))
 
 
 def one_thread():
@@ -1001,22 +1020,20 @@ def _tum_poses(path):
     return R.astype(np.float32), (-np.einsum("fij,fj->fi", R, rows[:, 1:4])).astype(np.float32)
 
 
-def _busy(prof, wall_s):
-    """(device events, copies / memsets, busy share) of a profiled window."""
-    from torch.autograd import DeviceType
-
-    dev = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
-    busy_us, end = 0.0, -math.inf
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+def _busy(win, wall_s):
+    """(device kernels, copies / memsets, busy share) of a device window
+    (utils.profiling.device_window) whose work took ``wall_s``."""
+    dev = win.events
+    copies = [e for e in dev if e.name().startswith(("Memcpy", "Memset"))]
+    busy_ns, end = 0.0, -math.inf
+    for a, b in sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in dev):
         if b > end:  # the union of the device intervals
-            busy_us += b - max(a, end)
+            busy_ns += b - max(a, end)
             end = b
-    return len(dev) - len(copies), len(copies), busy_us / (wall_s * 1e6)
+    return len(dev) - len(copies), len(copies), busy_ns / (wall_s * 1e9)
 
 
-def _serve(make, stacks, n_ticks, fcfg, profile=True, after=None) -> dict:
+def _serve(make, stacks, n_ticks, fcfg, profile=True, after=None, graphs=None) -> dict:
     """A library serving run: ``make()`` builds the server; per tick the
     streams' images go to the card as one [S, 480, 640] stack, one batched
     extract_features, then ``step``. Ticks SERVE_PROFILE_FROM.. are
@@ -1024,12 +1041,15 @@ def _serve(make, stacks, n_ticks, fcfg, profile=True, after=None) -> dict:
     ``profile`` they only warm up), the later ones timed (aggregate
     frames/s). Returns the finalized states, the timings, the peak
     allocator memory above the run's start, and ``after(server)``'s items;
-    the server goes when it returns."""
+    the server goes when it returns. The profiled window must see every
+    launch and give each graph launch the events of one of ``graphs(server,
+    items)``, the server's graphs' events per replay, taken once the run
+    is over."""
     import torch
-    from torch.profiler import ProfilerActivity
 
     from cvsteer_tpu_torch.cli_vo import _to_device
     from cvsteer_tpu_torch.features.frontend import Features, extract_features
+    from cvsteer_tpu_torch.utils.profiling import device_window
 
     S = stacks.shape[1]
     gc.collect()  # the previous run's cyclic garbage holds card memory
@@ -1046,29 +1066,34 @@ def _serve(make, stacks, n_ticks, fcfg, profile=True, after=None) -> dict:
 
     for k in range(SERVE_PROFILE_FROM if profile else prof_end):
         tick(k)
-    kernels_n, copies_n, busy = math.nan, math.nan, math.nan
+    kernels_n, copies_n, busy, win = math.nan, math.nan, math.nan, None
     if profile:
         torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with device_window() as win:
             t0 = time.perf_counter()
             for k in range(SERVE_PROFILE_FROM, prof_end):
                 tick(k)
             torch.cuda.synchronize()
             prof_s = time.perf_counter() - t0
-        kernels_n, copies_n, busy = _busy(prof, prof_s)
+        kernels_n, copies_n, busy = _busy(win, prof_s)
     t0 = time.perf_counter()
     for k in range(prof_end, n_ticks):
         tick(k)
     states = [srv.finalize(i) for i in range(S)]
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    items = after(srv) if after else {}
+    launches = math.nan
+    if win is not None:
+        win.check(graphs=graphs(srv, items))
+        launches = len(win.launches)
     return dict(
         states=states, fps=S * (n_ticks - prof_end) / timed_s,
         tick_ms=1e3 * timed_s / (n_ticks - prof_end), wall_s=time.perf_counter() - t_start,
         kernels_per_tick=kernels_n / SERVE_PROFILE_TICKS,
-        copies_per_tick=copies_n / SERVE_PROFILE_TICKS, busy_share=busy,
-        peak_bytes=torch.cuda.max_memory_allocated() - base, **(after(srv) if after else {}),
+        copies_per_tick=copies_n / SERVE_PROFILE_TICKS, busy_share=busy, launches=launches,
+        peak_bytes=peak, **items,
     )
 
 
@@ -1096,7 +1121,6 @@ def run_serving(workdir: str) -> dict:
     from cvsteer_tpu_torch.slam.vo import VOConfig
     from cvsteer_tpu_torch.slam.vo_device import DeviceVOFleet, DeviceVOServer
     from cvsteer_tpu_torch.slam.vo_server import VOServer
-    from cvsteer_tpu_torch.utils.profiling import device_ms
 
     cfg = VOConfig()
     S = SERVE_STREAMS
@@ -1120,18 +1144,25 @@ def run_serving(workdir: str) -> dict:
     def fleet_graphs(flt):  # after the run: one replay of each graph, timed
         out = dict(captures=flt.captures, engine_captures=[e.captures for e in flt.engines])
         for g, half in (("FT", 0), ("FP", 1)):
-            ms, seen = device_ms(lambda h=half: flt._run_half(h))
-            out[g] = dict(device_ms=ms, events_per_replay=seen)
+            out[g] = replay_ms(lambda h=half: flt._run_half(h),
+                               lambda h=half: flt._run_half(h, eager=True))
         return out
+
+    def engine_graphs(srv, _):  # every engine's T and P are the same two graphs
+        return [graph_kernels(lambda h=half: srv.engines[0]._run_half(h, eager=True))
+                for half in (0, 1)]
+
+    def fleet_kernels(_, items):
+        return [items[g]["events_per_replay"] for g in ("FT", "FP")]
 
     res = {}
     res["DeviceVOServer"] = _serve(lambda: DeviceVOServer(cfg, n_streams=S), stacks,
-                                   SERVE_FRAMES, cfg.frontend)
+                                   SERVE_FRAMES, cfg.frontend, graphs=engine_graphs)
     res["fleet classic"] = _serve(lambda: DeviceVOFleet(cfg, n_streams=S), stacks,
-                                  SERVE_FRAMES, cfg.frontend, after=fleet_graphs)
+                                  SERVE_FRAMES, cfg.frontend, after=fleet_graphs, graphs=fleet_kernels)
     res["fleet pipelined"] = _serve(
         lambda: DeviceVOFleet(cfg, n_streams=S, pipeline=True, promote_cap=SERVE_PIPE_CAP),
-        stacks, SERVE_FRAMES, cfg.frontend, after=fleet_graphs)
+        stacks, SERVE_FRAMES, cfg.frontend, after=fleet_graphs, graphs=fleet_kernels)
     res["VOServer"] = _serve(lambda: VOServer(cfg, n_streams=S), stacks, SERVE_HOST_FRAMES,
                              cfg.frontend, profile=False)
     single = res["DeviceVOServer"]["states"]
@@ -2170,8 +2201,7 @@ def run_features() -> dict:
             channels=c, fps=n / call_s, call_ms=1e3 * call_s,
             kernel_ms_per_frame={"filter_bank": a_ms[0] / n, "pyr_down": b_ms[0] / n,
                                  "desc_sample": d_ms[0] / n},
-            # device events the profiler saw per call (0: CUDA events, an
-            # upper bound, because it saw none: utils/profiling.device_ms)
+            # device events per call (device_ms checks them against the launches)
             kernel_events_seen={"filter_bank": a_ms[1], "pyr_down": b_ms[1], "desc_sample": d_ms[1]},
             desc_sample_ms=d_ms[0], desc_sample_events_seen=d_ms[1], desc_sample_plain_ms=d_plain,
             desc_sample_bound=d_bound.fields(), keypoints=counts,
@@ -2244,9 +2274,9 @@ def run_vo_chunk(images, sequential: dict) -> dict:
     from cvsteer_tpu_torch.cli_vo import _to_device
     from cvsteer_tpu_torch.features.frontend import Features, extract_features
     from cvsteer_tpu_torch.slam.vo import VOConfig
-    from cvsteer_tpu_torch.slam.vo_device import DeviceVO
+    from cvsteer_tpu_torch.slam.vo_device import (DeviceVO, _chunk_half, _speed_clamp_on,
+                                                  _step_kwargs, _step_math)
     from cvsteer_tpu_torch.utils.metrics import StepTimer
-    from cvsteer_tpu_torch.utils.profiling import device_ms
 
     cfg = VOConfig()
     n = len(images)
@@ -2305,8 +2335,15 @@ def run_vo_chunk(images, sequential: dict) -> dict:
         for (_, Ra, ta), (_, Rb, tb) in zip(state.trajectory, seq_state.trajectory))
     d5 = [np.abs(-Ra.T @ ta + Rb.T @ tb).max()
           for (_, Ra, ta), (_, Rb, tb) in zip(state.trajectory, sequential["state"].trajectory)]
-    graph = vo._chunks[CHUNK][1]
-    ms, seen = device_ms(lambda: graph.replay(), reps=5)
+    ch, graph, _ = vo._chunks[CHUNK]
+    track, promote = _step_kwargs(cfg)
+
+    def eager():  # what C captured (DeviceVO._chunk)
+        with _step_math(vo.device):
+            _chunk_half(vo.map, vo._io, ch, track=track, promote=promote,
+                        stop_at_keyframe=_speed_clamp_on(cfg))
+
+    rep = replay_ms(lambda: graph.replay(), eager, reps=5)
     capture_s = timer.total_s.get("capture", 0.0)  # T and P, then C (with their warm-ups)
     return dict(
         state=state, fps=n / wall, fps_no_capture=n / (wall - capture_s), capture_s=capture_s,
@@ -2314,7 +2351,8 @@ def run_vo_chunk(images, sequential: dict) -> dict:
         waits_per_chunk=chunk_waits / max(chunks, 1), same_keyframes=same_kf, bit_equal=bits,
         max_pose_diff=float(max(d, default=math.inf)), captures=vo.captures,
         keyframes=len(state.keyframes), vs_phase5b=float(max(d5, default=math.inf)),
-        graph_ms=ms, graph_events=seen, launches=launches, calls=-(-n // CHUNK),
+        graph_ms=rep["device_ms"], graph_events=rep["events_per_replay"],
+        launches=launches, calls=-(-n // CHUNK),
     )
 
 
@@ -3136,7 +3174,7 @@ def main(argv=None) -> int:
               f"{prof['copies_per_frame']:.1f} copies/memsets per frame; device busy "
               f"{100 * prof['busy_share']:.2f} % of {prof['wall_ms_per_frame']:.2f} ms per frame; "
               f"features span {prof['features_ms']:.3f} ms; kernels B-D device ms per frame "
-              f"{prof['frontend_kernel_ms']}")
+              f"{prof['frontend_kernel_ms']}; every one of {prof['launches']} launches seen")
         checks["VO profile: device time seen"] = prof["busy_share"] > 0
         launches = {"vo": res["launches"]}
 
@@ -3160,11 +3198,10 @@ def main(argv=None) -> int:
         print(f"VO device: graphs captured {caps[-1]}, first at frame "
               f"{next((i for i, c in enumerate(caps) if c), None)}; launches {dres['launches']}")
         for graph, r in dres["replay"].items():
-            how = ("torch.profiler" if r["events_per_replay"]
-                   else "CUDA events around the replay: the profiler saw no kernel in it")
-            print(f"VO device graph {graph}: {r['device_ms']:.4f} ms device per replay ({how}; "
-                  f"{r['events_per_replay']:.0f} device events per replay); "
-                  f"{r['call_ms']:.4f} ms per replay with the wait (CUDA events)")
+            print(f"VO device graph {graph}: {r['device_ms']:.4f} ms device per replay "
+                  f"(torch.profiler, 25 replays, each with the {r['events_per_replay']} device "
+                  f"events of an eager run of its half); {r['call_ms']:.4f} ms per replay with "
+                  f"the wait (CUDA events)")
         checks.update({
             "VO device: initialized": dst.initialized,
             "VO device: one pose per frame": dres["frames"] == list(range(n)),
@@ -3182,13 +3219,15 @@ def main(argv=None) -> int:
                 caps[-1] == 2 and set(caps) <= {0, 2} and caps == sorted(caps)),
             "VO device: promotions ran on the device": dres["keyframes"] > 0,
         })
-        dprof = profile_vo(args.seed, engine="device")
+        dprof = profile_vo(args.seed, engine="device",
+                           graphs=[r["events_per_replay"] for r in dres["replay"].values()])
         print(f"VO device profile, frames {VO_PROFILE_WARM}-{VO_PROFILE_WARM + VO_PROFILE_FRAMES - 1} "
               f"of a second run (torch.profiler): {dprof['kernels_per_frame']:.1f} device kernels, "
               f"{dprof['copies_per_frame']:.1f} copies/memsets per frame; device busy "
               f"{100 * dprof['busy_share']:.2f} % of {dprof['wall_ms_per_frame']:.2f} ms per frame; "
               f"features span {dprof['features_ms']:.3f} ms; kernels B-D device ms per frame "
-              f"{dprof['frontend_kernel_ms']}")
+              f"{dprof['frontend_kernel_ms']}; every one of {dprof['launches']} launches seen, "
+              f"{dprof['graph_launches']} of them graph launches with T's or P's events")
         checks["VO device profile: device time seen"] = dprof["busy_share"] > 0
         launches["vo_device"] = dres["launches"]
 
@@ -3205,10 +3244,10 @@ def main(argv=None) -> int:
               f"{cres['same_keyframes']}, poses bit for bit {cres['bit_equal']} (max |diff| "
               f"{cres['max_pose_diff']:.3e}); camera centers against phase 5b's single-frame "
               f"extraction {cres['vs_phase5b']:.3e} m; captures {cres['captures']}")
-        how = "torch.profiler" if cres["graph_events"] else "CUDA events (the profiler saw no kernel)"
         print(f"{card} | VO device graph C ({CHUNK} frames, T then masked P each): "
               f"{cres['graph_ms']:.4f} ms device per replay, {cres['graph_ms'] / CHUNK:.4f} ms per "
-              f"frame ({how}; {cres['graph_events']:.0f} device events per replay); sequential T "
+              f"frame (torch.profiler, 5 replays, each with the {cres['graph_events']} device "
+              f"events of an eager run of the chunk); sequential T "
               f"{t_rep:.4f} + P {p_rep:.4f} ms per replay; phase {time.perf_counter() - t0:.1f} s")
         checks.update({
             "VO chunks: the sequential engine's keyframes": cres["same_keyframes"],
@@ -3247,7 +3286,8 @@ def main(argv=None) -> int:
             else:
                 prof = (f"ticks {window} profiled: {r['kernels_per_tick']:.1f} device kernels, "
                         f"{r['copies_per_tick']:.1f} copies/memsets per tick, device busy "
-                        f"{100 * r['busy_share']:.2f} %")
+                        f"{100 * r['busy_share']:.2f} %, every one of {r['launches']} launches "
+                        f"seen")
                 checks[f"serving {path}: device time seen"] = r["busy_share"] > 0
             print(f"{card} | serving {path}, {SERVE_STREAMS} streams x {n} frames 480x640: "
                   f"{r['fps']:.2f} frames/s aggregate over ticks "
@@ -3264,10 +3304,9 @@ def main(argv=None) -> int:
             checks[f"serving {path}: 2 graphs, its engines none"] = (
                 r["captures"] == 2 and not any(r["engine_captures"]))
         for g, r in srv["graphs"].items():
-            how = ("torch.profiler" if r["events_per_replay"]
-                   else "CUDA events around the replay: the profiler saw no kernel in it")
             print(f"{card} | serving {g} (S = {SERVE_STREAMS}): {r['device_ms']:.4f} ms device per "
-                  f"replay, {r['events_per_replay']:.0f} device events per replay ({how})")
+                  f"replay (torch.profiler, 25 replays, each with the {r['events_per_replay']} "
+                  f"device events of an eager run of its half)")
         print(f"{card} | serving: single-stream DeviceVO (DeviceVOServer's engines) ATE "
               f"{[round(a, 4) for a in srv['lib']['DeviceVOServer']['ate']]}, bounds "
               f"{[round(g['bound'], 4) for g in srv['gates']]}")
@@ -3368,8 +3407,7 @@ def main(argv=None) -> int:
                   f"call, median of {FEAT_REPS}); {r['valid']} valid keypoints; launches per call "
                   f"{ {k: r['launches'][k] for k in FEAT_LAUNCHES_PER_CALL} }; device ms per frame "
                   + json.dumps({k: round(v, 6) for k, v in r["kernel_ms_per_frame"].items()})
-                  + " (device events seen per call " + json.dumps(r["kernel_events_seen"])
-                  + ", 0: timed by CUDA events)"
+                  + " (device events seen per call " + json.dumps(r["kernel_events_seen"]) + ")"
                   + f"; D′ at C = {r['channels']}: {r['desc_sample_ms']:.4f} ms per call, plain "
                   f"{r['desc_sample_plain_ms']:.4f}, bound {r['desc_sample_bound']['bound_ms']:.4f} "
                   f"({r['desc_sample_bound']['bound_by']}); against plain: A {r['filter_bank']}, "

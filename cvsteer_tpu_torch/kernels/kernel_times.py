@@ -24,12 +24,15 @@ import sys
 
 def _functions(call) -> dict:
     """{CUDA function name: launches per call} from one traced call."""
-    from cvsteer_tpu_torch.utils.profiling import _device_events
+    from cvsteer_tpu_torch.utils.profiling import device_window
 
+    with device_window() as win:
+        call()
+    win.check()
     counts = {}
-    for evt in _device_events(call, 1):
-        m = re.search(r"(\w+)(?=[<(])", evt.name)
-        if m and not evt.name.startswith(("Memcpy", "Memset")):
+    for evt in win.events:
+        m = re.search(r"(\w+)(?=[<(])", evt.name())
+        if m and not evt.name().startswith(("Memcpy", "Memset")):
             counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     return counts
 

@@ -1,7 +1,7 @@
-"""Tile shapes of kernels C, A, E, E4, B and F on the card, and every
+"""Tile shapes of kernels C, A, E, E4, B, F and M on the card, and every
 kernel's registers and spills.
 
-    python -m cvsteer_tpu_torch.kernels.tile_sweep [--kernel c|a|e|e4|b|f|ptxas] [--tiles 32x64,...]
+    python -m cvsteer_tpu_torch.kernels.tile_sweep [--kernel c|a|e|e4|b|f|m|ptxas] [--tiles 32x64,...]
                                                    [--strips 4,8] [--row-strips 2] [--block-levels 4]
                                                    [--define MACRO=VALUE ...]
 
@@ -36,6 +36,13 @@ calls).
   ``CVS_F_COL_STRIP`` and the row-strip width ``CVS_F_ROW_STRIP``): the
   gradient phase's 1x480x640 with the G2/H2 (K 7, T 9) and G4/H4 (K 11,
   T 13) banks; ms per call of each.
+- ``m`` (probe_maps_mma.cu, the probes' kernel M, tile width
+  ``CVS_M_TILE_W``; its tile height is 64, wgmma's M): every case of
+  ``cuda_probes.MMA_CASES`` on the probes' 16x512x512 batch within
+  ``cuda_probes.mma_agreement``'s tolerance, the launch shape the source
+  reports (``cvs_probe_mma_config``: shared bytes, threads and blocks per
+  SM of the full bf16x3 instantiation) and device ms per case and for the
+  unit of PERF.md's row V3 (the six calls of the probes).
 
 ``ptxas`` builds the whole library with ``-Xptxas -v`` and prints one JSON
 line per kernel instantiation (registers, spill bytes) and a last line with
@@ -63,6 +70,7 @@ DEFAULT_TILES = {
     "e": "32x64,64x32,32x32,16x64",
     "b": "2x4,2x8,4x4,4x8",
     "f": "32x32,16x32,32x16,16x64,32x64,64x32",
+    "m": "64x64,64x32,64x48,64x80",
 }
 SOURCES = {  # kernel -> its source, the macros of its tile height and width, column-strip
     # height and row-strip width (None: fixed in the source), its ctypes entry
@@ -77,7 +85,12 @@ SOURCES = {  # kernel -> its source, the macros of its tile height and width, co
     "b": ("pyr_down.cu", ("CVS_B_TILE_H", "CVS_B_TILE_W", "CVS_B_LEVELS", None), "cvs_pyr_down_levels"),
     "f": ("filter_bank_adj.cu", ("CVS_F_TILE_H", "CVS_F_TILE_W", "CVS_F_COL_STRIP", "CVS_F_ROW_STRIP"),
           "cvs_filter_bank_adj"),
+    # M's tile height is wgmma's M (64), fixed in the source
+    "m": ("probe_maps_mma.cu", (None, "CVS_M_TILE_W", None, None), "cvs_probe_mma"),
 }
+#: the six M calls of the probes (profile_variants, profile_frontend): row V3's unit
+MMA_UNIT = (("row", "fp32", "bf16x3"), ("col", "fp32", "bf16x3"), ("coeff", "fp32", "bf16x3"),
+            ("full", "fp32", "bf16x3"), ("full", "mma", "bf16x3"), ("full", "fp32", "bf16x1"))
 SMEM_PER_SM = 233472  # H100: 228 KB of shared memory per SM, 1 KB of it reserved per block
 
 
@@ -344,6 +357,44 @@ def sweep_f(builds):
         yield same, rec
 
 
+def sweep_m(builds):
+    import torch
+
+    from cvsteer_tpu_torch import probes
+    from cvsteer_tpu_torch.ops import cuda_probes as cp
+
+    xt, yt = probes.g2_taps()
+    batch = probes.uniform_batch(16, 512, "cuda")
+    n_rows = len({row.tobytes() for row in xt})
+    cases = sorted(cp.MMA_CASES)
+    want = {c: cp.maps_mma_plain(batch, xt, yt, *c) for c in cases}
+    c3 = {row: cp.maps_mma_plain(batch, xt, yt, "coeff", row, "bf16x3")[1] for row in ("fp32", "mma")}
+    for (_, tw, _, _), log, path in builds:
+        _load(path, "cvs_probe_mma")
+        agree, good = {}, True
+        for c in cases:
+            res = cp.mma_agreement(cp.maps_mma(batch, xt, yt, *c), want[c], c[0], c[1],
+                                   c3[c[1]] if c[0] == "full" else None)
+            agree["/".join(c)] = res["max_rel"]
+            good &= res["ok"]
+        lib = ctypes.CDLL(path)
+        smem, threads, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.cvs_probe_mma_config(n_rows, ctypes.byref(smem), ctypes.byref(threads), ctypes.byref(blocks))
+        regs, spills = _usage(log, r"mma_maps_kernel")
+        per_case = {"/".join(c): device_ms(lambda c=c: cp.maps_mma(batch, xt, yt, *c), ("mma_maps_kernel",), 1)[0]
+                    for c in MMA_UNIT}
+        yield good, dict(
+            tile=f"64x{tw}", registers=regs, spill_bytes=spills,
+            smem_bytes=smem.value if err == 0 else None, threads=threads.value if err == 0 else None,
+            blocks_per_sm=blocks.value if err == 0 else None, config_error=err,
+            tiles=16 * -(-512 // 64) * -(-512 // tw), halo_factor=(64 + 8) * (tw + 8) / (64 * tw),
+            device_ms_per_case=per_case,
+            device_ms_unit=device_ms(lambda: [cp.maps_mma(batch, xt, yt, *c) for c in MMA_UNIT],
+                                     ("mma_maps_kernel",), len(MMA_UNIT))[0],
+            max_rel=agree,
+        )
+
+
 def ptxas_report() -> int:
     """Build the library's sources with -Xptxas -v; one JSON line per kernel."""
     out_dir = os.path.join(kernels.BUILD_DIR, "sweep")
@@ -372,7 +423,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("c", "a", "e", "e4", "b", "f", "ptxas"), default="c")
+    ap.add_argument("--kernel", choices=("c", "a", "e", "e4", "b", "f", "m", "ptxas"), default="c")
     ap.add_argument("--tiles", default=None)
     ap.add_argument("--strips", default="4,8", help="e, e4, f: column-strip heights")
     ap.add_argument("--row-strips", default="2", help="a, e, e4, f: row-strip widths")
@@ -397,7 +448,7 @@ def main(argv=None) -> int:
     procs = []
     for shape in shapes:
         defines = dict(d.split("=", 1) for d in args.define)
-        defines.update({m: v for m, v in zip(macros, shape) if v is not None})
+        defines.update({m: v for m, v in zip(macros, shape) if m is not None and v is not None})
         procs.append(_build(args.kernel, "x".join(str(v) for v in shape if v is not None), defines))
     builds = []
     for shape, (proc, path) in zip(shapes, procs):
@@ -408,12 +459,13 @@ def main(argv=None) -> int:
         builds.append((shape, log, path))
     sweep = {"c": lambda b: sweep_c(b, args.nms_radius), "a": sweep_a,
              "e": lambda b: sweep_maps(b, 2), "e4": lambda b: sweep_maps(b, 4), "b": sweep_b,
-             "f": sweep_f}[args.kernel]
+             "f": sweep_f, "m": sweep_m}[args.kernel]
     ok, card = True, torch.cuda.get_device_name(0)
     try:
         for same, rec in sweep(builds):
             ok &= same
-            print(json.dumps(dict(kernel=args.kernel, **rec, defines=args.define, bit_equal=same, card=card)),
+            check = "within_tolerance" if args.kernel == "m" else "bit_equal"
+            print(json.dumps(dict(kernel=args.kernel, **rec, defines=args.define, **{check: same}, card=card)),
                   flush=True)
     finally:
         kernels._lib = None

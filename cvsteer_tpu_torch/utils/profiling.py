@@ -12,7 +12,10 @@ kernels/tile_sweep.py and cvsteer_tpu_torch.probes share, so their numbers
 compare: ``device_ms`` is the device time of a call's kernels, read from
 torch.profiler over 25 calls after warm-up with no L2 flush; ``call_ms``
 is CUDA events around one call on an idle card, host work included.
-Without a CUDA device the hooks do nothing and the timers raise.
+Every profiled window (:func:`device_window`) is padded with idle time and
+must see each of its launches' device events, or it raises
+(:class:`ShortWindowError`). Without a CUDA device the hooks do nothing and
+the timers raise.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import collections
 import contextlib
 import os
 import re
-import sys
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+import time
+from typing import Collection, Dict, Iterator, Optional, Sequence, Tuple
 
 
 def _cuda() -> bool:
@@ -111,13 +114,36 @@ class MemoryHighWater:
 # Device time
 # ---------------------------------------------------------------------------
 
+#: Idle host time a device window keeps before its first launch and after
+#: its last synchronize (s). Kineto drops every device event whose start or
+#: end, converted from the GPU's clock to the host's, falls outside the
+#: profiler's capture window, and on the H100 that conversion wanders: a
+#: window's first device event was seen from 6 ms before to 6.5 ms after
+#: the launch call that made it (kernels/profiler_windows.py). Unpadded, a
+#: window then lost its first launches, or all of them; 20 ms on each side
+#: kept every event of 250 windows, and 0.2 s leaves room beyond what was
+#: seen.
+WINDOW_PAD_S = 0.2
 
-def device_time_attr() -> str:
-    """The FunctionEvent attribute this torch names a device event's time
-    under (``device_time_total``; ``cuda_time_total`` in older releases)."""
-    from torch.autograd.profiler_util import FunctionEvent
+#: Kernels a window launches before its pad and leaves out of what it
+#: reports. The first kernels after the profiler starts can have no device
+#: event, however long the pad: one a window when the card's modules load
+#: eagerly, and in a long-lived process a number that grows with its age
+#: (with 3 primers, windows of a process that kept the card busy lost none
+#: until ~90 s, then one more launch about every 16 s, every other launch's
+#: device event on time: kernels/profiler_windows.py --drift). A thousand
+#: cost ~5 ms a window.
+PRIMER_LAUNCHES = 1000
+_BLOCK = "device_window"
 
-    return "device_time_total" if hasattr(FunctionEvent, "device_time_total") else "cuda_time_total"
+#: the host-side runtime and driver calls that put work on a stream: each
+#: has one correlation id that its device events (one, or a graph's many)
+#: carry
+LAUNCH_API = re.compile(r"^(cuda|cu)(Launch(Cooperative)?Kernel\w*|Memset\w*Async|Memcpy\w*Async|GraphLaunch)")
+
+
+class ShortWindowError(RuntimeError):
+    """A profiled window saw fewer device events than it made launches."""
 
 
 def kernel_named(kernel: str, name: str) -> bool:
@@ -126,46 +152,135 @@ def kernel_named(kernel: str, name: str) -> bool:
     return bool(re.search(rf"(?<![A-Za-z0-9_]){name}(?=[<(])", kernel)) or f"{len(name)}{name}E" in kernel
 
 
-def _device_events(run_once: Callable[[], object], reps: int):
-    """The device events of ``reps`` calls of ``run_once`` inside
-    torch.profiler: kernels, memsets and copies; the profiler's own
-    annotations and every host event (the runtime's calls) never."""
+class DeviceWindow:
+    """What one :func:`device_window` saw, filled when the block ends:
+    ``events``, the device events (kineto's: kernels, memsets and copies;
+    ``name()``, ``start_ns()``, ``duration_ns()``, ``correlation_id()``);
+    ``launches``, the runtime's launch calls on the host (LAUNCH_API)."""
+
+    def __init__(self):
+        self.events: list = []
+        self.launches: list = []
+
+    def named(self, names: Sequence[str] = ()) -> list:
+        """The device events of the CUDA functions ``names`` (all with none)."""
+        if not names:
+            return list(self.events)
+        return [e for e in self.events if any(kernel_named(e.name(), nm) for nm in names)]
+
+    def unseen(self) -> list:
+        """The launch calls none of whose device events the window holds."""
+        seen = {e.correlation_id() for e in self.events}
+        return [e for e in self.launches if e.correlation_id() not in seen]
+
+    def graph_events(self) -> list:
+        """The device events each CUDA graph launch of the window carries
+        (one count a launch, in order): a graph's kernels, memsets and
+        copies, all under its launch's correlation id."""
+        n = collections.Counter(e.correlation_id() for e in self.events)
+        return [n[e.correlation_id()] for e in self.launches if "GraphLaunch" in e.name()]
+
+    def lag_ms(self) -> Tuple[float, float]:
+        """(least, greatest) time from a launch call to the start of its
+        first device event (ms, on kineto's converted clock; nan without
+        events): negative where the conversion puts the kernel before its
+        launch."""
+        first = {}
+        for e in self.events:
+            c = e.correlation_id()
+            first[c] = min(first.get(c, e.start_ns()), e.start_ns())
+        lags = [(first[e.correlation_id()] - e.start_ns()) / 1e6 for e in self.launches
+                if e.correlation_id() in first]
+        return (min(lags), max(lags)) if lags else (float("nan"), float("nan"))
+
+    def check(self, names: Sequence[str] = (), want: Optional[int] = None,
+              graphs: Optional[Collection[int]] = None) -> None:
+        """Raise ShortWindowError unless every launch has its device events;
+        for ``want``, exactly ``want`` events of ``names`` (of all events
+        with no names); for ``graphs`` (the events per replay of each CUDA
+        graph that may run in the window), every graph launch all the events
+        of one of them."""
+        unseen = self.unseen()
+        if unseen:
+            lo, hi = self.lag_ms()
+            raise ShortWindowError(
+                f"the profiler window saw no device event for {len(unseen)} of its {len(self.launches)} "
+                f"launches ({', '.join(sorted({e.name() for e in unseen}))}; the others' first device "
+                f"events {lo:.3f} to {hi:.3f} ms after their launch calls)")
+        if want is not None:
+            got = len(self.named(names))
+            if got != want:
+                what = f"of {tuple(names)}" if names else "in all"
+                raise ShortWindowError(f"the profiler window saw {got} device events {what}, not {want}")
+        if graphs is not None:
+            short = [n for n in self.graph_events() if n not in graphs]
+            if short:
+                raise ShortWindowError(
+                    f"the profiler window saw {len(short)} graph launches with {sorted(set(short))} "
+                    f"device events; its graphs make {sorted(set(graphs))}")
+
+
+@contextlib.contextmanager
+def device_window() -> Iterator[DeviceWindow]:
+    """torch.profiler (host and device) around the block: PRIMER_LAUNCHES
+    small kernels, WINDOW_PAD_S of idle time, the block inside a host range,
+    a synchronize, WINDOW_PAD_S again. Yields a DeviceWindow, filled when
+    the block ends with the launch calls made inside the range and their
+    device events (the primers' left out). Raises without a CUDA device."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not _cuda():
         raise RuntimeError("device time needs a CUDA device")
+    win = DeviceWindow()
+    primer = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run_once()
+        for _ in range(PRIMER_LAUNCHES):
+            primer.zero_()
+        time.sleep(WINDOW_PAD_S)
+        with record_function(_BLOCK):
+            yield win
         torch.cuda.synchronize()
-    return [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        time.sleep(WINDOW_PAD_S)
+    raw = prof.profiler.kineto_results.events()
+    spans = [(e.start_ns(), e.end_ns()) for e in raw if e.device_type() == DeviceType.CPU and e.name() == _BLOCK]
+    if len(spans) != 1:
+        raise RuntimeError(f"device_window: the profiler holds {len(spans)} host ranges of the block, not 1")
+    lo, hi = spans[0]
+    win.launches = [e for e in raw if e.device_type() == DeviceType.CPU and LAUNCH_API.match(e.name())
+                    and lo <= e.start_ns() <= hi]
+    mine = {e.correlation_id() for e in win.launches}
+    win.events = [e for e in raw if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                  and e.correlation_id() in mine]
 
 
-def device_events(fn, names: Sequence[str] = (), reps: int = 25) -> Tuple[float, int]:
-    """(summed device time in us, event count) of ``reps`` calls of ``fn``:
-    the kernels of the CUDA functions ``names``, or with no names every
-    device kernel, memset and copy."""
-    attr = device_time_attr()
-    total_us, n = 0.0, 0
-    for evt in _device_events(fn, reps):
-        if names and not any(kernel_named(evt.name, nm) for nm in names):
-            continue
-        total_us += getattr(evt, attr)
-        n += 1
-    return total_us, n
+def device_events(fn, names: Sequence[str] = (), reps: int = 25,
+                  want: Optional[int] = None) -> Tuple[float, int]:
+    """(summed device time in us, event count) of ``reps`` calls of ``fn``
+    in one device_window: the kernels of the CUDA functions ``names``, or
+    with no names every device kernel, memset and copy. Raises
+    ShortWindowError unless every launch shows (and, given ``want``,
+    exactly ``want`` of those events do)."""
+    with device_window() as win:
+        for _ in range(reps):
+            fn()
+    win.check(names, want)
+    evts = win.named(names)
+    return sum(e.duration_ns() for e in evts) / 1e3, len(evts)
 
 
 def trace_device_events(run_once, iters: int = 4) -> Dict[str, float]:
     """Device time by kernel name (us, summed over ``iters`` calls of
     ``run_once``): a Counter over every device kernel, memset and copy.
     Raises without a CUDA device. Divide by ``iters`` for per-call."""
-    attr = device_time_attr()
+    with device_window() as win:
+        for _ in range(iters):
+            run_once()
+    win.check()
     dur = collections.Counter()
-    for evt in _device_events(run_once, iters):
-        dur[evt.name] += getattr(evt, attr)
+    for evt in win.events:
+        dur[evt.name()] += evt.duration_ns() / 1e3
     return dur
 
 
@@ -174,63 +289,29 @@ def trace_device_us(run_once, iters: int = 4) -> float:
     return sum(trace_device_events(run_once, iters).values()) / iters
 
 
-def window_ms(fn, reps: int = 25) -> float:
-    """CUDA events around ``reps`` back-to-back calls of ``fn``, per call
-    (ms): the device time plus whatever gaps the host leaves between the
-    calls' kernels."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, names: Sequence[str] = (), per_call: Optional[int] = None, reps: int = 25,
-              tries: int = 5) -> Tuple[float, float]:
+def device_ms(fn, names: Sequence[str] = (), per_call: Optional[int] = None,
+              reps: int = 25, events: Optional[int] = None) -> Tuple[float, float]:
     """Device time of one call of ``fn`` in ms, from ``reps`` calls after
-    warm-up inside torch.profiler. No L2 flush: on every path a kernel reads
+    warm-up in one device_window. No L2 flush: on every path a kernel reads
     what the one before it has just written.
 
-    A hand-written kernel (``names`` and ``per_call``, the CUDA launches
-    one call makes): the mean duration of its kernel events times
-    ``per_call``. The profiler now and then misses a device event of a
-    window, so a window with fewer than ``per_call * reps`` events is taken
-    again, up to ``tries`` times, and the fullest one is used. Without
-    names (a plain version or a library call): the device time of every
-    event in the first window that has any, over ``reps``.
-
-    Now and then the profiler reports no device event at all for a window.
-    Such a window is taken again; when all ``tries`` are empty the time is
-    :func:`window_ms`'s (an upper bound of the device time), a note goes to
-    stderr and the events seen per call are 0. Returns (ms, events seen per
-    call)."""
+    With ``names`` (a hand-written kernel; ``per_call``, default 1, the
+    launches of those CUDA functions one call makes): the summed duration of
+    their events over ``reps``. Without names (a plain version, a library
+    call, a graph replay): that of every device event; ``events``, where
+    given, is the device events one call makes (a graph replay's: its
+    kernels, memsets and copies). Either way the window must see every
+    launch's device events, and exactly ``per_call * reps`` (or ``events *
+    reps``) of the counted ones; a window that sees fewer raises
+    ShortWindowError with both counts. Returns (ms, events per call)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    per_call = per_call or 1
-    want = per_call * reps if names else 1
-    best = (0.0, 0)
-    for _ in range(tries):
-        got = device_events(fn, names, reps)
-        if got[0] > 0.0 and got[1] > best[1]:
-            best = got
-        if best[1] >= want:
-            break
-    total_us, n = best
-    if n == 0:
-        print(f"device_ms: torch.profiler reported no device time for {tuple(names) or 'the call'} "
-              f"in {tries} windows; timed with CUDA events around the window", file=sys.stderr)
-        return window_ms(fn, reps), 0.0
-    if not names:
-        return total_us / reps / 1e3, n / reps
-    return total_us / n * per_call / 1e3, n / reps
+    want = (per_call or 1) * reps if names else (events * reps if events is not None else None)
+    total_us, n = device_events(fn, names, reps, want)
+    return total_us / reps / 1e3, n / reps
 
 
 def call_ms(fn, reps: int = 25) -> float:

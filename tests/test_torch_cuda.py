@@ -864,7 +864,7 @@ def test_torch_cuda_probe_variants_bit_equal(cuda, shape):
     assert all(torch.equal(a, b) for a, b in zip(sd, cf.g2_maps(img, xt, yt)))
 
 
-@pytest.mark.parametrize("shape", PROBE_SHAPES[:3])
+@pytest.mark.parametrize("shape", PROBE_SHAPES[:3] + [(3, 200, 200)])
 def test_torch_cuda_probe_mma_matches_plain(cuda, shape):
     """Kernel M against its plain version (the same bf16 splits and
     products, torch.matmul in fp32), within the tolerance stated in
@@ -872,7 +872,10 @@ def test_torch_cuda_probe_mma_matches_plain(cuda, shape):
     their own, so the row stage (CUDA cores, plain order) is bit-equal, col
     and coeff agree to 1e-5 of scale (1e-4 after the rowmxu row pass), and
     the full maps, ill-conditioned where the orientation is not firm, to
-    1e-5 of scale at most pixels and to 1e-3 where it is firm."""
+    1e-5 of scale at most pixels and to 1e-3 where it is firm. Shapes: the
+    probes' batch (1,024 tiles for the persistent blocks), a ragged one
+    smaller than a tile, and widths that are not a multiple of the tile
+    width (70, and 200 over four tiles of 64, with tiles inside the image)."""
     xt, yt = _probe_taps()
     img = torch.from_numpy(_texture(shape, seed=13)).to(cuda)
     for stage, row, col in sorted(cp.MMA_CASES):
@@ -884,6 +887,21 @@ def test_torch_cuda_probe_mma_matches_plain(cuda, shape):
         c3 = cp.maps_mma_plain(img, xt, yt, "coeff", row, col)[1] if stage == "full" else None
         res = cp.mma_agreement(got, want, stage, row, c3)
         assert res["ok"], (stage, row, col, res)
+
+
+def test_torch_cuda_probe_mma_unaligned_input(cuda):
+    """Kernel M on an image whose storage starts 4 bytes past a 16-byte
+    boundary: every tile stages through the reflected 4-byte copies, and the
+    maps equal those of the same image at an aligned address."""
+    xt, yt = _probe_taps()
+    img = torch.from_numpy(_texture((2, 200, 136), seed=14)).to(cuda)
+    store = torch.empty(img.numel() + 1, device=cuda)
+    odd = store[1:].view(img.shape)
+    odd.copy_(img)
+    assert odd.data_ptr() % 16 != 0
+    for stage, row, col in sorted(cp.MMA_CASES):
+        for a, b in zip(cp.maps_mma(odd, xt, yt, stage, row, col), cp.maps_mma(img, xt, yt, stage, row, col)):
+            assert torch.equal(a, b), (stage, row, col)
 
 
 def test_torch_cuda_probe_wrappers_raise(cuda):

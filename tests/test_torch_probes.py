@@ -20,6 +20,7 @@ profile_v2_stages, an r-row top pad in the others) and an r-column left pad;
 the tests read the port's outputs at those rows and columns.
 """
 
+import contextlib
 import importlib.util
 import inspect
 import pathlib
@@ -473,23 +474,117 @@ def test_torch_probes_untimed_walks_each_call_once():
     assert all(np.isnan(us) for _, us in res["stages"]) and np.isnan(res["entry_us"])
 
 
-@pytest.mark.parametrize("names, per_call", [((), None), (("maps_kernel",), 2)])
-def test_torch_device_ms_retries_empty_windows(monkeypatch, capsys, names, per_call):
-    """device_ms takes a window the profiler left empty again, uses the
-    first full one, and times with CUDA events only when every window is
-    empty (events seen 0, a note on stderr). The profiler is stubbed: the
-    windows' (us, events) come from a list."""
-    windows = []
+class _Evt:
+    """A kineto event as the device window reads it."""
+
+    def __init__(self, name, corr, dur_ns=0, start_ns=0):
+        self._n, self._c, self._d, self._s = name, corr, dur_ns, start_ns
+
+    def name(self):
+        return self._n
+
+    def correlation_id(self):
+        return self._c
+
+    def duration_ns(self):
+        return self._d
+
+    def start_ns(self):
+        return self._s
+
+
+@pytest.mark.parametrize("names, per_call, events", [((), None, None), (("maps_kernel",), 2, None),
+                                                     ((), None, 3)])
+def test_torch_device_ms_retries_empty_windows(monkeypatch, names, per_call, events):
+    """device_ms takes ONE window and holds it to its launches: a full
+    window gives the mean device time per call; a window that misses a
+    launch's device event, or sees fewer events of the named kernels than
+    per_call * reps (or, for a graph replay of ``events`` device events,
+    fewer than events * reps in all), raises ShortWindowError with both
+    counts. Nothing is retaken and no other clock stands in.
+    The profiler is stubbed: each window's launches and device events come
+    from a list."""
+    windows, opened = [], []
+
+    @contextlib.contextmanager
+    def fake_window():
+        win = profiling.DeviceWindow()
+        opened.append(win)
+        yield win
+        win.launches, win.events = windows.pop(0)
+
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    monkeypatch.setattr(profiling, "device_events", lambda fn, nm, reps: windows.pop(0))
-    monkeypatch.setattr(profiling, "window_ms", lambda fn, reps: 7.5)
-    reps, want = 4, 2 * 4 if names else 1
-    windows[:] = [(0.0, 0), (0.0, 0), (80.0, want), (1.0, 1)]
-    ms, seen = profiling.device_ms(lambda: None, names, per_call, reps=reps)
-    assert (ms, seen) == (0.02, want / reps) and windows == [(1.0, 1)]
-    windows[:] = [(0.0, 0)] * 5
-    assert profiling.device_ms(lambda: None, names, per_call, reps=reps) == (7.5, 0.0)
-    assert "no device time" in capsys.readouterr().err and windows == []
+    monkeypatch.setattr(profiling, "device_window", fake_window)
+    reps, per = 4, per_call or events or 1
+    kernel = "void (anonymous namespace)::maps_kernel<4>(float const*)"
+    if events:  # one graph launch a call, its kernels under its correlation id
+        launches = [_Evt("cudaGraphLaunch", c) for c in range(reps)]
+        events_ = [_Evt(kernel, c // per, dur_ns=2500) for c in range(per * reps)]
+    else:
+        launches = [_Evt("cudaLaunchKernel", c) for c in range(per * reps)]
+        events_ = [_Evt(kernel, c, dur_ns=2500) for c in range(per * reps)]
+    windows[:] = [(launches, events_)]
+    ms, seen = profiling.device_ms(lambda: None, names, per_call, reps=reps, events=events)
+    assert (ms, seen) == (pytest.approx(2500e-6 * per), per) and len(opened) == 1
+    if events:  # every replay seen, but the first one lost one of its kernels
+        windows[:] = [(launches, events_[1:])]
+        with pytest.raises(profiling.ShortWindowError, match=f"saw {per * reps - 1} device events in all, "
+                                                             f"not {per * reps}"):
+            profiling.device_ms(lambda: None, names, per_call, reps=reps, events=events)
+        assert len(opened) == 2 and windows == []
+        return
+    windows[:] = [(launches, events_[1:])]  # the first launch's event dropped
+    with pytest.raises(profiling.ShortWindowError, match=f"no device event for 1 of its {per * reps} launches"):
+        profiling.device_ms(lambda: None, names, per_call, reps=reps)
+    assert len(opened) == 2 and windows == []
+    if names:  # every launch seen, but one of them is another kernel
+        other = [_Evt("void other_kernel<1>(float)", 0)] + events_[1:]
+        windows[:] = [(launches, other)]
+        with pytest.raises(profiling.ShortWindowError, match=f"saw {per * reps - 1} .* not {per * reps}"):
+            profiling.device_ms(lambda: None, names, per_call, reps=reps)
+        assert len(opened) == 3
+
+
+def test_torch_device_window_checks_graph_launches():
+    """A profiled window of several graphs (a VO run's T and P) holds each
+    graph launch to the events of one of the graphs that may run there: a
+    replay that lost one of its kernels raises with both counts."""
+    win = profiling.DeviceWindow()
+    win.launches = [_Evt("cudaGraphLaunch", 0), _Evt("cudaLaunchKernel", 1), _Evt("cudaGraphLaunch", 2)]
+    win.events = ([_Evt("t_kernel", 0)] * 3 + [_Evt("features", 1)] + [_Evt("p_kernel", 2)] * 5)
+    assert win.graph_events() == [3, 5]
+    win.check(graphs=[3, 5])
+    with pytest.raises(profiling.ShortWindowError, match=r"1 graph launches with \[5\] device events; "
+                                                         r"its graphs make \[3, 4\]"):
+        win.check(graphs=[3, 4])
+    win.events = win.events[1:]  # T's replay lost a kernel
+    with pytest.raises(profiling.ShortWindowError, match=r"\[2\] device events"):
+        win.check(graphs=[3, 5])
+
+
+def test_torch_device_window_pads_both_sides(monkeypatch):
+    """device_window launches its primers, then keeps WINDOW_PAD_S of idle
+    time before the block and, after synchronizing, after it (the H100's
+    device-to-host clock conversion wanders by about a millisecond, and
+    kineto drops device events it places outside the window); it keeps the
+    runtime's launch calls made inside the block and their device events,
+    and nothing else."""
+    calls = []
+    zeros = torch.zeros
+    monkeypatch.setattr(profiling, "_cuda", lambda: True)
+    monkeypatch.setattr(torch, "zeros", lambda n, device=None: calls.append(("primer", n)) or zeros(n))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: calls.append("sync"))
+    monkeypatch.setattr(profiling.time, "sleep", lambda s: calls.append(s))
+    with profiling.device_window() as win:
+        calls.append("block")
+        torch.ones(8).sum()
+    assert calls == [("primer", 1), profiling.WINDOW_PAD_S, "block", "sync", profiling.WINDOW_PAD_S]
+    assert profiling.WINDOW_PAD_S >= 0.01
+    assert win.events == [] and win.launches == [] and win.unseen() == []
+    win.check()
+    assert profiling.LAUNCH_API.match("cudaLaunchKernel") and profiling.LAUNCH_API.match("cuLaunchKernelEx")
+    assert profiling.LAUNCH_API.match("cudaMemcpyAsync") and profiling.LAUNCH_API.match("cudaGraphLaunch")
+    assert not profiling.LAUNCH_API.match("cudaStreamSynchronize")
 
 
 @pytest.mark.parametrize("name", ["probe_dma_gather", "profile_v2_stages", "profile_frontend",
