@@ -26,12 +26,22 @@ ticks before its saved frame.
 
   python -m cvsteer_tpu_torch.cli_vo --input seqA,seqB,seqC --engine device \
       --pipeline --output traj.txt
+
+``--verbose`` reports host times from the program's spans
+(utils/profiling.py), without synchronizing the device: one stream, every
+``log_every`` frames and at the end, each span name's mean ms (``cli.decode``,
+``cli.vo``, ``cli.checkpoint`` and the spans inside them); serving, at the
+end, each span name's self ms a tick and the ``fleet.step`` counts a tick.
+Both also split ``fleet.wait`` by fetch, ``fleet.event`` by stream,
+``features.level`` by level and ``features.extract`` by path.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import sys
+import time
 
 
 def main(argv=None) -> int:
@@ -79,7 +89,8 @@ def main(argv=None) -> int:
         apply_overrides,
         load_config,
     )
-    from cvsteer_tpu_torch.utils.metrics import Metrics, StepTimer
+    from cvsteer_tpu_torch.utils.metrics import Metrics
+    from cvsteer_tpu_torch.utils.profiling import annotate
 
     cfg = load_config(args.config) if args.config else EngineConfig()
     if args.camera_preset:
@@ -120,10 +131,10 @@ def main(argv=None) -> int:
                 print(f"resumed at frame {start}", file=sys.stderr)
 
     metrics = Metrics()
-    timer = StepTimer(sync=torch.cuda.synchronize if args.device.startswith("cuda") else None)
+    opened = time.time_ns()
     last_kf_count = len(state.keyframes)
     for k in range(start, len(seq.image_paths)):
-        with timer.span("decode"):
+        with annotate("cli.decode"):
             img = imread_gray_f32(seq.image_paths[k])
         if img is None:
             if args.verbose:
@@ -131,7 +142,7 @@ def main(argv=None) -> int:
             # keep frame ids aligned with the sequence index
             state.frame_count += 1
             continue
-        with timer.span("vo"):
+        with annotate("cli.vo"):
             if engine is not None:
                 engine.process_image(img)
                 state = engine.state
@@ -144,13 +155,13 @@ def main(argv=None) -> int:
             if ckpt is not None and cfg.checkpoint_every and (
                 last_kf_count % cfg.checkpoint_every == 0
             ):
-                with timer.span("checkpoint"):
+                with annotate("cli.checkpoint"):
                     if engine is not None:
                         engine.sync_host()  # a checkpoint needs the landmark positions
                     ckpt.save(last_kf_count, state)
         if args.verbose and cfg.log_every and (k + 1) % cfg.log_every == 0:
             metrics.gauge("landmarks", state.num_landmarks)
-            metrics.log(step=k + 1, **timer.means_ms())
+            metrics.log(step=k + 1, **_span_means_ms(opened))
 
     state = engine.finalize() if engine is not None else finalize(state)
     if ckpt is not None:
@@ -165,10 +176,59 @@ def main(argv=None) -> int:
     if args.verbose:
         print(
             f"frames/s: {metrics.fps:.2f}; keyframes: {len(state.keyframes)}; "
-            f"landmarks: {state.num_landmarks}; phase ms: {timer.means_ms()}",
+            f"landmarks: {state.num_landmarks}; span ms: {_span_means_ms(opened)}",
             file=sys.stderr,
         )
     return 0
+
+
+#: the span attribute --verbose also splits a span name's time by, as
+#: ``name[attr=value]``: which fetch the host waited on, which stream's event
+#: path ran, which pyramid level, which extraction path
+_SPLIT = {"fleet.wait": "fetch", "fleet.event": "stream", "features.level": "level",
+          "features.extract": "path"}
+
+
+def _labels(s) -> tuple:
+    """A span's name and, for the names in _SPLIT, ``name[attr=value]``
+    (the fused path's one ``features.level`` has no level)."""
+    k = _SPLIT.get(s.name)
+    return (s.name, f"{s.name}[{k}={s.attrs[k]}]") if k in s.attrs else (s.name,)
+
+
+def _span_means_ms(since_ns: int) -> dict:
+    """Each program span label's mean ms (_labels) over the spans the ring
+    holds that opened since ``since_ns``."""
+    from cvsteer_tpu_torch.utils import profiling
+
+    total, n = collections.defaultdict(float), collections.Counter()
+    for s in profiling.spans():
+        if s.start_ns >= since_ns:
+            for label in _labels(s):
+                total[label] += (s.end_ns - s.start_ns) / 1e6
+                n[label] += 1
+    return {k: round(v / n[k], 3) for k, v in total.items()}
+
+
+def _print_tick_spans(since_ns: int) -> None:
+    """Serving's --verbose report: each span label's self ms a tick
+    (_labels), and the fleet.step counts a tick, over the whole ticks
+    (``cli.tick``) the ring holds that opened since ``since_ns``."""
+    from cvsteer_tpu_torch.utils import profiling
+
+    rec = [s for s in profiling.spans() if s.start_ns >= since_ns]
+    ticks = [s for s in rec if s.name == "cli.tick"]
+    if not ticks:
+        return
+    rec = [s for s in rec if s.index >= ticks[0].index]
+    own = sorted(profiling.self_ms(rec, _labels).items())
+    print(f"span self ms a tick over {len(ticks)} ticks: "
+          + ", ".join(f"{k} {v / len(ticks):.3f}" for k, v in own), file=sys.stderr)
+    steps = [s for s in rec if s.name == "fleet.step"]
+    if steps:
+        keys = ("stepped", "bootstrapped", "fp_rows", "promoted", "event_paths")
+        print("fleet.step counts a tick: " + ", ".join(
+            f"{k} {sum(s.attrs[k] for s in steps) / len(steps):.2f}" for k in keys), file=sys.stderr)
 
 
 def vo_config(cfg):
@@ -260,7 +320,6 @@ def _run_server(args, cfg, roots) -> int:
     ticks before its restored frame count (a fleet engine adopts the state,
     and its row enters the stack at its first tick, by ``copy_``)."""
     import os
-    import time
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -269,6 +328,7 @@ def _run_server(args, cfg, roots) -> int:
     from cvsteer_tpu_torch.features.frontend import Features, extract_features
     from cvsteer_tpu_torch.io.datasets import open_sequence
     from cvsteer_tpu_torch.io.imageio import imread_gray_f32
+    from cvsteer_tpu_torch.utils.profiling import annotate
 
     vo_cfg = vo_config(cfg)
     seqs = [open_sequence(r, max_frames=args.max_frames or None) for r in roots]
@@ -309,39 +369,44 @@ def _run_server(args, cfg, roots) -> int:
     group_pad = {}  # image shape -> the group's running batch size
     with ThreadPoolExecutor(max_workers=min(8, n)) as pool:
         t0 = time.perf_counter()
+        opened = time.time_ns()
         for k in range(n_ticks):
-            paths = [s.image_paths[k] if start[i] <= k < len(s.image_paths) else None
-                     for i, s in enumerate(seqs)]
-            imgs = list(pool.map(lambda p: imread_gray_f32(p) if p else None, paths))
-            frames = [None] * n
-            by_shape = {}
-            for i, im in enumerate(imgs):
-                if im is not None:
-                    by_shape.setdefault(im.shape, []).append(i)
-            for shape, idxs in by_shape.items():
-                gp = group_pad[shape] = max(group_pad.get(shape, 0), len(idxs))
-                stack = np.zeros((gp,) + shape, np.float32)
-                for slot, i in enumerate(idxs):
-                    stack[slot] = imgs[i]
-                batch = extract_features(_to_device(stack, dev), cfg=vo_cfg.frontend)
-                for slot, i in enumerate(idxs):
-                    frames[i] = Features(*(x[slot] for x in batch))
-                frames_done += len(idxs)
-            srv.step(frames)  # also with no frame: a pipelined server drains
-            for i, im in enumerate(imgs):
-                if paths[i] is not None and im is None:
-                    if args.verbose:
-                        print(f"skip unreadable: {paths[i]}", file=sys.stderr)
-                    srv.states[i].frame_count += 1
-            for i, st in enumerate(srv.states):
-                nk = len(st.keyframes)
-                if nk != last_kf[i]:
-                    last_kf[i] = nk
-                    if ckpts[i] is not None and cfg.checkpoint_every and (
-                        nk % cfg.checkpoint_every == 0
-                    ):
-                        # a checkpoint needs the landmark positions
-                        ckpts[i].save(nk, srv.sync_host(i) if engines is not None else st)
+            with annotate("cli.tick"):
+                paths = [s.image_paths[k] if start[i] <= k < len(s.image_paths) else None
+                         for i, s in enumerate(seqs)]
+                with annotate("cli.decode"):
+                    imgs = list(pool.map(lambda p: imread_gray_f32(p) if p else None, paths))
+                frames = [None] * n
+                by_shape = {}
+                for i, im in enumerate(imgs):
+                    if im is not None:
+                        by_shape.setdefault(im.shape, []).append(i)
+                for shape, idxs in by_shape.items():
+                    gp = group_pad[shape] = max(group_pad.get(shape, 0), len(idxs))
+                    stack = np.zeros((gp,) + shape, np.float32)
+                    for slot, i in enumerate(idxs):
+                        stack[slot] = imgs[i]
+                    batch = extract_features(_to_device(stack, dev), cfg=vo_cfg.frontend)
+                    for slot, i in enumerate(idxs):
+                        frames[i] = Features(*(x[slot] for x in batch))
+                    frames_done += len(idxs)
+                srv.step(frames)  # also with no frame: a pipelined server drains
+                for i, im in enumerate(imgs):
+                    if paths[i] is not None and im is None:
+                        if args.verbose:
+                            print(f"skip unreadable: {paths[i]}", file=sys.stderr)
+                        srv.states[i].frame_count += 1
+                for i, st in enumerate(srv.states):
+                    nk = len(st.keyframes)
+                    if nk != last_kf[i]:
+                        last_kf[i] = nk
+                        if ckpts[i] is not None and cfg.checkpoint_every and (
+                            nk % cfg.checkpoint_every == 0
+                        ):
+                            # a checkpoint needs the landmark positions
+                            ckpts[i].save(nk, srv.sync_host(i) if engines is not None else st)
+        if args.verbose:
+            _print_tick_spans(opened)
         states = [srv.finalize(i) for i in range(n)]
         for ck, st in zip(ckpts, states):
             if ck is not None:

@@ -18,6 +18,12 @@ Both sample the descriptors of all levels' keypoints together, each level's
 keypoints from its basis (one kernel D launch, C = 7 or 11; the reference
 samples per level, with the same values). The pyramid is kernel B. On a
 CPU tensor the same structures run with the kernels' plain versions.
+
+Each call is the program span ``features.extract`` (attrs ``frames``, the
+batch size, and ``path``, ``fused`` or ``generic``) with the children
+``features.pyramid``, ``features.level`` (one per level in the generic
+path, attr ``level``; the fused path's levels as one), ``features.descriptors``
+and ``features.assemble`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from cvsteer_tpu_torch.filters import g2 as fg2
 from cvsteer_tpu_torch.filters import g4 as fg4
 from cvsteer_tpu_torch.ops.cuda_frontend import g2_features_levels
 from cvsteer_tpu_torch.ops.pyramid import gaussian_pyramid
+from cvsteer_tpu_torch.utils.profiling import annotate
 
 
 class FrontendConfig(NamedTuple):
@@ -122,24 +129,28 @@ def extract_features(
     when given."""
     _check_config(cfg)
     single = images.dim() == 2
-    imgs = (images[None] if single else images).to(torch.float32).contiguous()
-    if cfg.order == 4:
-        bank = fg4.g4_bank() if bank is None else bank
-        feats = _extract_features_generic(
-            imgs, cfg, basis_fn=lambda im: fg4.g4_basis(im, bank),
-            coeff_fn=fg4.energy_coefficients,
-        )
-    elif cfg.score != "corner" or cfg.nms_radius < 2:  # the packed cells need nms_radius >= 2
-        bank = fg2.g2_bank() if bank is None else bank
-        feats = _extract_features_generic(
-            imgs, cfg, basis_fn=lambda im: fg2.g2_basis(im, bank),
-            coeff_fn=fg2.energy_coefficients,
-        )
-    else:
-        feats = _extract_features_fused(imgs, fg2.g2_bank() if bank is None else bank, cfg)
-    if single:
-        feats = Features(*(x[0] for x in feats))
-    return feats
+    # the packed cells need nms_radius >= 2
+    fused = cfg.order == 2 and cfg.score == "corner" and cfg.nms_radius >= 2
+    with annotate("features.extract", frames=1 if single else int(images.shape[0]),
+                  path="fused" if fused else "generic"):
+        imgs = (images[None] if single else images).to(torch.float32).contiguous()
+        if fused:
+            feats = _extract_features_fused(imgs, fg2.g2_bank() if bank is None else bank, cfg)
+        elif cfg.order == 4:
+            bank = fg4.g4_bank() if bank is None else bank
+            feats = _extract_features_generic(
+                imgs, cfg, basis_fn=lambda im: fg4.g4_basis(im, bank),
+                coeff_fn=fg4.energy_coefficients,
+            )
+        else:
+            bank = fg2.g2_bank() if bank is None else bank
+            feats = _extract_features_generic(
+                imgs, cfg, basis_fn=lambda im: fg2.g2_basis(im, bank),
+                coeff_fn=fg2.energy_coefficients,
+            )
+        if single:
+            feats = Features(*(x[0] for x in feats))
+        return feats
 
 
 def _assemble(kp: Keypoints, desc: torch.Tensor, counts, device) -> Features:
@@ -158,23 +169,32 @@ def _assemble(kp: Keypoints, desc: torch.Tensor, counts, device) -> Features:
 
 def _extract_features_fused(imgs: torch.Tensor, bank, cfg: FrontendConfig) -> Features:
     """The fused path on ``imgs [B, H, W]`` float32."""
-    levels = gaussian_pyramid(imgs, cfg.levels)
-    maps = g2_features_levels(
-        levels, bank.xtaps, bank.ytaps, threshold=cfg.threshold, nms_radius=cfg.nms_radius
-    )
-    kps = [
-        detect_keypoints_packed(p3, dym, dxm, ctm, stm, max_keypoints=cfg.level_capacity(lvl))
-        for lvl, (p3, dym, dxm, ctm, stm, _) in enumerate(maps)
-    ]
-    counts = tuple(k.capacity for k in kps)
-    kp = Keypoints(*(torch.cat(f, dim=1) for f in zip(*kps)))  # level coordinates
-    kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
-    desc = phase_descriptors_levels(
-        [m[5] for m in maps], kp_d, counts,
-        grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
-        pi_invariant=cfg.desc_pi_invariant,
-    )
-    return _assemble(kp, desc, counts, imgs.device)
+    with annotate("features.pyramid"):
+        levels = gaussian_pyramid(imgs, cfg.levels)
+    with annotate("features.level"):
+        maps = g2_features_levels(
+            levels, bank.xtaps, bank.ytaps, threshold=cfg.threshold, nms_radius=cfg.nms_radius
+        )
+        kps = [
+            detect_keypoints_packed(p3, dym, dxm, ctm, stm, max_keypoints=cfg.level_capacity(lvl))
+            for lvl, (p3, dym, dxm, ctm, stm, _) in enumerate(maps)
+        ]
+    return _describe([m[5] for m in maps], kps, cfg, imgs.device)
+
+
+def _describe(bases, kps, cfg: FrontendConfig, device) -> Features:
+    """Every level's descriptors in one sampling call, then the Features:
+    the tail both paths share."""
+    with annotate("features.descriptors"):
+        counts = tuple(k.capacity for k in kps)
+        kp = Keypoints(*(torch.cat(f, dim=1) for f in zip(*kps)))  # level coordinates
+        kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
+        desc = phase_descriptors_levels(
+            bases, kp_d, counts, grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
+            pi_invariant=cfg.desc_pi_invariant,
+        )
+    with annotate("features.assemble"):
+        return _assemble(kp, desc, counts, device)
 
 
 def _score_maps(lv_imgs, *, basis_fn, coeff_fn, score: str = "corner"):
@@ -231,16 +251,12 @@ def _extract_features_generic(imgs: torch.Tensor, cfg: FrontendConfig, *, basis_
     basis -> energy coefficients -> detector per level, then every level's
     descriptors in one sampling call. The 2nd-harmonic (c1, c2, c3) mean
     the same for both orders (filters.g4.energy_coefficients)."""
-    levels = gaussian_pyramid(imgs, cfg.levels)
-    bases, kps = zip(*(
-        _level_keypoints(lv, lvl, cfg, basis_fn=basis_fn, coeff_fn=coeff_fn)
-        for lvl, lv in enumerate(levels)
-    ))
-    counts = tuple(k.capacity for k in kps)
-    kp = Keypoints(*(torch.cat(f, dim=1) for f in zip(*kps)))
-    kp_d = kp._replace(theta=torch.zeros_like(kp.theta)) if cfg.upright_desc else kp
-    desc = phase_descriptors_levels(
-        bases, kp_d, counts, grid=cfg.descriptor_grid, spacing=cfg.descriptor_spacing,
-        pi_invariant=cfg.desc_pi_invariant,
-    )
-    return _assemble(kp, desc, counts, imgs.device)
+    with annotate("features.pyramid"):
+        levels = gaussian_pyramid(imgs, cfg.levels)
+    bases, kps = [], []
+    for lvl, lv in enumerate(levels):
+        with annotate("features.level", level=lvl):
+            basis, kp = _level_keypoints(lv, lvl, cfg, basis_fn=basis_fn, coeff_fn=coeff_fn)
+        bases.append(basis)
+        kps.append(kp)
+    return _describe(bases, kps, cfg, imgs.device)

@@ -45,6 +45,7 @@ from cvsteer_tpu_torch.slam import vo_core
 from cvsteer_tpu_torch.slam.ba import BAProblem, BAState, bundle_adjust, refine_pose
 from cvsteer_tpu_torch.utils.metrics import StepTimer
 from cvsteer_tpu_torch.utils.precision import precise
+from cvsteer_tpu_torch.utils.profiling import annotate
 
 #: consecutive lost frames (no reloc) before the engine restarts its map
 REBOOT_AFTER_LOST = 5
@@ -191,7 +192,17 @@ def init_vo(config: VOConfig = VOConfig(), device="cuda") -> VOState:
 
 
 def _span(state: VOState, name: str):
-    return state.timer.span(name) if state.timer is not None else contextlib.nullcontext()
+    """The program span ``vo.<name>`` (utils/profiling.py), also lapped by
+    ``state.timer`` when one is set."""
+    if state.timer is None:
+        return annotate("vo." + name)
+    return _timed(state.timer, name)
+
+
+@contextlib.contextmanager
+def _timed(timer: StepTimer, name: str):
+    with annotate("vo." + name), timer.span(name):
+        yield
 
 
 def _dev(state: VOState, a, dtype=None) -> torch.Tensor:

@@ -79,7 +79,7 @@ import contextlib
 import functools
 import time
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,7 @@ from cvsteer_tpu_torch.slam import vo_core
 from cvsteer_tpu_torch.slam.ba import BAProblem, BAState, bundle_adjust
 from cvsteer_tpu_torch.slam.vo import Keyframe, VOConfig, VOState, init_vo
 from cvsteer_tpu_torch.utils.precision import precise
+from cvsteer_tpu_torch.utils.profiling import annotate
 
 
 class DeviceMap(NamedTuple):
@@ -1771,6 +1772,20 @@ class DeviceVOFleet:
     :attr:`states` keep their meaning for every stream (the owner sends the
     state), so they are collectives: every rank calls them, and step, in
     the same order.
+
+    Spans (utils/profiling.py): each :meth:`step` and :meth:`step_batched`
+    is one ``fleet.step`` with the counts ``tick`` (the call's number),
+    ``stepped`` (streams on the stack this tick), ``bootstrapped`` (streams
+    whose frame the host path took), ``fp_rows`` (the rows FP's replay
+    computed: S, or the cap; 0 when FP did not run), ``promoted`` (streams
+    whose fetched P row says they promoted) and ``event_paths`` (streams
+    whose completion took a host event path). The classic tick's children
+    are ``fleet.enter``, ``fleet.stage``, ``fleet.ft``, ``fleet.wait``
+    (attr ``fetch`` 1 or 2), ``fleet.fp``, ``fleet.complete`` and, inside
+    it, one ``fleet.event`` per event path (attr ``stream``, the row);
+    the pipelined tick's ``fleet.enter``, ``fleet.launch`` and
+    ``fleet.process`` (a ``fleet.wait`` inside), whose ``promoted`` and
+    ``event_paths`` go on the step that processes the fetched tick.
     """
 
     def __init__(self, config: VOConfig = VOConfig(), n_streams: int = 8, mesh=None,
@@ -1808,9 +1823,8 @@ class DeviceVOFleet:
         self._share = self._shard is not None and 0 < self.promote_cap < self.n_streams
         # rotating fair-serve origin of the capped promotion
         self._promote_rr = 0
-        # host phase wall profile: set to {} to record cumulative seconds
-        # per tick phase (assemble, dispatch, copy_async, process, ...)
-        self.host_profile = None
+        # calls of step and step_batched: the fleet.step span's ``tick``
+        self._ticks = 0
         self.engines = [DeviceVO(config, device=device, capture=False) for _ in range(n_local)]
         self.device = self.engines[0].device if self.engines else torch.device(device)
         if self._share:
@@ -1830,13 +1844,6 @@ class DeviceVOFleet:
         # drop set, event]
         self._queue = []
         self._slot = 0
-
-    def _lap(self, phase: str, t0: float) -> float:
-        if self.host_profile is None:
-            return 0.0
-        now = time.perf_counter()
-        self.host_profile[phase] = self.host_profile.get(phase, 0.0) + now - t0
-        return now
 
     def _advance_rr(self, S: int) -> int:
         """The current fair-serve origin; advances by promote_cap a tick."""
@@ -2030,9 +2037,16 @@ class DeviceVOFleet:
         if self._shard is not None:
             lo = self._shard[1]
             frames = list(frames[lo: lo + len(self.engines)])
-        if self._pipeline:
-            return self._step_pipelined(frames)
-        return self._step_classic(frames)
+        with self._step_span() as sp:
+            if self._pipeline:
+                self._step_pipelined(frames, sp)
+            else:
+                self._step_classic(frames, sp)
+
+    def _step_span(self) -> annotate:
+        self._ticks += 1
+        return annotate("fleet.step", tick=self._ticks - 1, stepped=0, bootstrapped=0, fp_rows=0,
+                        promoted=0, event_paths=0)
 
     def _share_requests(self, ticked: bool) -> None:
         """A sharded capped fleet, every tick on every rank, between FT and
@@ -2054,7 +2068,7 @@ class DeviceVOFleet:
         step = torch.where(every[:, S].any(), self.promote_cap, 0)
         self._rr_dev.copy_(torch.remainder(self._rr_dev + step, self.n_streams))
 
-    def _enter(self, frames) -> Optional[np.ndarray]:
+    def _enter(self, frames, sp: annotate) -> Optional[np.ndarray]:
         """Bootstrap and (re)entry, the host path until an engine has a map;
         a stream that initializes here consumed this tick's frame. Returns
         the tick's mask of stepped streams, None when there is none."""
@@ -2071,6 +2085,7 @@ class DeviceVOFleet:
             consumed.add(i)
             if eng.map is not None:
                 self._scatter_in(i)
+        sp.set(bootstrapped=len(consumed))
         if self.stack is None or not self.active.any():
             return None
         tick = self.active.copy()
@@ -2090,40 +2105,51 @@ class DeviceVOFleet:
         if not self._share:  # else _share_requests sets it
             io.prio.fill_(self._advance_rr(self.n_streams))
 
-    def _step_classic(self, frames) -> None:
-        tick = self._enter(frames)
+    def _step_classic(self, frames, sp: annotate) -> None:
+        with annotate("fleet.enter"):
+            tick = self._enter(frames, sp)
         if tick is None:
             if self._share:
                 self._share_requests(False)
             return
         cfg = self.config
         sz = self._sizes
-        pose, force = self._pose_host.numpy(), self._force_host.numpy()
-        for i in np.nonzero(tick)[0]:
-            st = self.engines[i].state
-            kf = st.keyframes[-1]
-            Rp, tp = hostvo._predict_pose(st) if cfg.motion_model else (kf.R, kf.t)
-            pose[i, :9], pose[i, 9:] = np.reshape(Rp, 9), tp
-            force[i] = (st.frame_count - kf.index) >= cfg.kf_max_gap
+        stepped = np.nonzero(tick)[0]
         io = self._io
-        self._put_features(*_stack_features(frames, tick, sz["N"], sz["D"], self.device), tick, 0)
-        io.pose.copy_(self._pose_host, non_blocking=True)
-        io.force.copy_(self._force_host, non_blocking=True)
-        self._run_half(0)
-        if self._share:
-            self._share_requests(True)
-        self._t_host.copy_(io.t_out, non_blocking=True)
-        _wait(self.device)  # fetch 1: every stream's T row
+        with annotate("fleet.stage"):
+            pose, force = self._pose_host.numpy(), self._force_host.numpy()
+            for i in stepped:
+                st = self.engines[i].state
+                kf = st.keyframes[-1]
+                Rp, tp = hostvo._predict_pose(st) if cfg.motion_model else (kf.R, kf.t)
+                pose[i, :9], pose[i, 9:] = np.reshape(Rp, 9), tp
+                force[i] = (st.frame_count - kf.index) >= cfg.kf_max_gap
+            self._put_features(*_stack_features(frames, tick, sz["N"], sz["D"], self.device),
+                               tick, 0)
+            io.pose.copy_(self._pose_host, non_blocking=True)
+            io.force.copy_(self._force_host, non_blocking=True)
+        with annotate("fleet.ft"):
+            self._run_half(0)
+            if self._share:
+                self._share_requests(True)
+            self._t_host.copy_(io.t_out, non_blocking=True)
+        with annotate("fleet.wait", fetch=1):
+            _wait(self.device)  # fetch 1: every stream's T row
         t_rows = self._t_host.numpy().copy()
         p_rows = None
         if (t_rows[:, 14].astype(bool) & tick).any():
-            self._run_half(1)
-            self._p_host.copy_(io.p_out, non_blocking=True)
-            _wait(self.device)  # fetch 2: the promotions
+            with annotate("fleet.fp"):
+                self._run_half(1)
+                self._p_host.copy_(io.p_out, non_blocking=True)
+            with annotate("fleet.wait", fetch=2):
+                _wait(self.device)  # fetch 2: the promotions
             p_rows = self._p_host.numpy().copy()
-        results = self._rows(t_rows, p_rows)
-        for i in np.nonzero(tick)[0]:
-            self._complete(i, frames[i], results[i])
+            sp.set(fp_rows=sz["PB"])
+        with annotate("fleet.complete"):
+            results = self._rows(t_rows, p_rows)
+            events = sum(self._complete(i, frames[i], results[i]) for i in stepped)
+        sp.set(stepped=len(stepped), promoted=sum(int(results[i].promoted) for i in stepped),
+               event_paths=events)
 
     def _rows(self, t_rows, p_rows):
         """Each stream's StepOut from the fetched rows (``p_rows`` None: FP
@@ -2153,11 +2179,12 @@ class DeviceVOFleet:
         takes the result back. Returns whether the event path ran."""
         eng = self.engines[i]
         if self._needs_map(eng, res):
-            self._gather_out(i)
-            eng.complete(feats, res)
-            if eng.map is not None:
-                self._scatter_in(i)
-            # else: the engine fell back to bootstrap; it re-enters when ready
+            with annotate("fleet.event", stream=int(i)):
+                self._gather_out(i)
+                eng.complete(feats, res)
+                if eng.map is not None:
+                    self._scatter_in(i)
+                # else: the engine fell back to bootstrap; it re-enters when ready
             return True
         eng._host_dirty = True
         eng.complete(feats, res)
@@ -2165,25 +2192,25 @@ class DeviceVOFleet:
 
     # -- the pipelined tick -------------------------------------------------
 
-    def _step_pipelined(self, frames) -> None:
-        tick = self._enter(frames)
+    def _step_pipelined(self, frames, sp: annotate) -> None:
+        with annotate("fleet.enter"):
+            tick = self._enter(frames, sp)
         if tick is None:
             if self._share:
                 self._share_requests(False)
-            self._flush()
+            self._flush(sp)
             return
-        t_phase = time.perf_counter() if self.host_profile is not None else 0
-        sz = self._sizes
-        feats = _stack_features(frames, tick, sz["N"], sz["D"], self.device)
-        self._launch(feats, tick, frames)
-        t_phase = self._lap("dispatch", t_phase)
+        with annotate("fleet.launch"):
+            sz = self._sizes
+            feats = _stack_features(frames, tick, sz["N"], sz["D"], self.device)
+            self._launch(feats, tick, frames, sp)
         while len(self._queue) > 1:
-            self._process(self._queue.pop(0))
-        self._lap("process", t_phase)
+            self._process(self._queue.pop(0), sp)
 
-    def _launch(self, feats, tick, frames) -> None:
+    def _launch(self, feats, tick, frames, sp: annotate) -> None:
         """One pipelined tick: the features in, FT and FP back to back, the
         fetch started into the ring's next slot, the tick queued."""
+        sp.set(stepped=int(tick.sum()), fp_rows=self._sizes["PB"])
         slot = self._slot
         self._slot = (slot + 1) % len(self._ring)
         self._put_features(*feats, tick, slot)
@@ -2198,11 +2225,11 @@ class DeviceVOFleet:
             event.record()
         self._queue.append([frames, tick, slot, set(), event])
 
-    def _flush(self) -> None:
+    def _flush(self, sp: Optional[annotate] = None) -> None:
         """Process every in-flight tick (pipelined; a no-op otherwise)."""
         q, self._queue = self._queue, []
         for pending in q:
-            self._process(pending)
+            self._process(pending, sp)
 
     def step_batched(self, yx, desc, fvalid) -> None:
         """A pipelined tick from batched features (``yx [S, N, 2]``, ``desc
@@ -2218,24 +2245,28 @@ class DeviceVOFleet:
             raise ValueError("step_batched needs pipeline=True")
         if self.stack is None or not self.active.all():
             raise ValueError("step_batched needs every stream active; bootstrap through step()")
-        t_phase = time.perf_counter() if self.host_profile is not None else 0
-        tick = self.active.copy()
-        self._launch((yx, desc, fvalid), tick, _LazyFeatureRows(yx, desc, fvalid))
-        t_phase = self._lap("dispatch", t_phase)
-        while len(self._queue) > self.pipeline_depth:
-            self._process(self._queue.pop(0))
-        self._lap("process", t_phase)
+        with self._step_span() as sp:
+            tick = self.active.copy()
+            with annotate("fleet.launch"):
+                self._launch((yx, desc, fvalid), tick, _LazyFeatureRows(yx, desc, fvalid), sp)
+            while len(self._queue) > self.pipeline_depth:
+                self._process(self._queue.pop(0), sp)
 
-    def _process(self, pending) -> None:
+    def _process(self, pending, sp: Optional[annotate]) -> None:
         """Apply a fetched tick to the host mirrors: the lagged twin of the
         classic tick's loop. A stream in the tick's drop set was rewritten
         by a host event after this tick was launched: its result is
-        superseded and its frame counts as skipped."""
-        frames, tick, slot, drop, event = pending
-        t_f = time.perf_counter() if self.host_profile is not None else 0
+        superseded and its frame counts as skipped. Its counts go on the
+        step span ``sp`` (None: a flush outside a step)."""
+        with annotate("fleet.process"):
+            promoted, events = self._process_tick(*pending)
+        if sp is not None:
+            sp.add(promoted=promoted, event_paths=events)
+
+    def _process_tick(self, frames, tick, slot, drop, event) -> Tuple[int, int]:
         if event is not None:
-            event.synchronize()
-        t_f = self._lap("process.fetch", t_f)
+            with annotate("fleet.wait", fetch=1):
+                event.synchronize()
         sz = self._sizes
         S, N, D, PB = sz["S"], sz["N"], sz["D"], sz["PB"]
         ring = self._ring[slot]
@@ -2266,6 +2297,7 @@ class DeviceVOFleet:
                          or not np.isfinite(results[i].t).all())]
             rows.update(frames.materialize(need))
             frames = [rows.get(i) for i in range(S)]
+        promoted = events = 0
         for i in range(S):
             if not tick[i]:
                 continue
@@ -2276,6 +2308,8 @@ class DeviceVOFleet:
             res = results[i]
             lost = res.lost or not (np.isfinite(res.R).all() and np.isfinite(res.t).all())
             event_path = self._complete(i, frames[i], res)
+            promoted += int(res.promoted)
+            events += event_path
             # after a loss the in-flight ticks tracked from a stale map: drop
             # their results (skipped frames); after a closure the in-flight
             # tick is a plain track (the block latch forbids a ring change):
@@ -2285,7 +2319,7 @@ class DeviceVOFleet:
                 for pend in self._queue:
                     if pend[1][i]:
                         pend[3].add(i)
-        self._lap("process.python", t_f)
+        return promoted, events
 
     def _to_device(self, a: torch.Tensor) -> torch.Tensor:
         """A slice of a pinned ring buffer on the fleet's device (a copy on

@@ -1,11 +1,16 @@
-"""Profiling hooks on torch.profiler, and the port's one device timer.
+"""The program's spans, the CUDA allocator's memory figures, and the port's
+one device timer.
 
-The counterpart of cvsteer_tpu.utils.profiling: Chrome traces of a block
-(:func:`trace_session`), named spans that show on the profiler's timeline
-and as NVTX ranges (:func:`annotate`, :func:`step_annotation`), the CUDA
-allocator's memory figures (:func:`device_memory_stats`,
-:class:`MemoryHighWater`), and the device time of CUDA kernels by name
-(:func:`trace_device_events`, :func:`trace_device_us`).
+Spans (:class:`annotate`) are always on. Each records ``(name, start_ns,
+end_ns, parent, attrs)`` into a bounded in-memory ring (RING_SIZE entries,
+the oldest overwritten), stamped with ``time.time_ns()``: the host clock
+kineto stamps its host events with, so the ring and a profiled window's
+device events share one clock. ``parent`` is the enclosing span on the same
+thread; ``attrs`` holds ints, floats and strs only, so a span keeps no
+device memory alive. Only while a torch profiler records does a span also
+open a profiler range (the C++ RecordFunction) and, on a card, an NVTX
+range, so Chrome traces still show it. :func:`spans` reads the ring,
+:func:`self_ms` sums self times by name, :func:`clear` empties it.
 
 :func:`device_ms` and :func:`call_ms` are the timers that chip_smoke.py,
 kernels/tile_sweep.py and cvsteer_tpu_torch.probes share, so their numbers
@@ -14,71 +19,172 @@ torch.profiler over 25 calls after warm-up with no L2 flush; ``call_ms``
 is CUDA events around one call on an idle card, host work included.
 Every profiled window (:func:`device_window`) is padded with idle time and
 must see each of its launches' device events, or it raises
-(:class:`ShortWindowError`). Without a CUDA device the hooks do nothing and
-the timers raise.
+(:class:`ShortWindowError`). Without a CUDA device the memory figures are
+empty and the timers raise.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import os
+import itertools
 import re
+import threading
 import time
-from typing import Collection, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Collection, Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
 
 
 def _cuda() -> bool:
-    import torch
-
     return torch.cuda.is_available()
 
 
-@contextlib.contextmanager
-def trace_session(log_dir: str) -> Iterator[None]:
-    """Profile the enclosed block and write ``<log_dir>/trace.json`` (a
-    Chrome trace: host spans, and device kernels where there is a card).
-    No-op when ``log_dir`` is empty."""
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if _cuda() else [])
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span: a torch.profiler record_function, and an NVTX range
-    where there is a card."""
-    import torch
-
-    nvtx = _cuda()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+#: entries the ring keeps; the oldest is overwritten
+RING_SIZE = 65536
+_ring: List[Optional[tuple]] = [None] * RING_SIZE
+_next_index = itertools.count()  # next() is atomic under the interpreter lock
+_ATTR_TYPES = (int, float, str)
+_profiling = torch._C._autograd._profiler_enabled
+#: the profiler's range: the C++ RecordFunction without the dispatcher op
+#: that torch.profiler.record_function goes through (~1 us against ~18 us a
+#: span on the card's host under the profiler), so kineto stamps it within
+#: a microsecond of the span's own stamps
+_range_type = torch._C._profiler._RecordFunctionFast
 
 
-def step_annotation(name: str, step: Optional[int] = None):
-    """The span of one step: ``name#step``."""
-    return annotate(f"{name}#{step or 0}")
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.stack: List[int] = []
+
+
+_open = _OpenSpans()
+
+
+class Span(NamedTuple):
+    """One closed span: its index (the order spans opened in), name, host
+    start and end (ns, ``time.time_ns()``), the index of the span that
+    enclosed it on its thread (-1: none) and its attributes."""
+
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    attrs: dict
+
+
+def _check_attrs(attrs: dict) -> None:
+    for k, v in attrs.items():
+        if type(v) not in _ATTR_TYPES:
+            raise TypeError(f"span attribute {k} is a {type(v).__name__}: ints, floats and strs only")
+
+
+class annotate:
+    """A named span, recorded into the ring when it closes::
+
+        with annotate("fleet.step", tick=k) as sp:
+            ...
+            sp.set(promoted=n)
+
+    ``attrs`` (and :meth:`set`, :meth:`add`) take ints, floats and strs
+    only. While a torch profiler records, the span is also a profiler
+    range (a RecordFunction, as ``record_function`` opens) and, on a card,
+    an NVTX range."""
+
+    __slots__ = ("name", "attrs", "index", "parent", "start_ns", "_range")
+
+    def __init__(self, name: str, **attrs):
+        if attrs:
+            _check_attrs(attrs)
+        self.name, self.attrs, self._range = name, attrs, None
+
+    def set(self, **attrs) -> None:
+        _check_attrs(attrs)
+        self.attrs.update(attrs)
+
+    def add(self, **counts) -> None:
+        """Add to counts (absent ones start at 0)."""
+        _check_attrs(counts)
+        for k, v in counts.items():
+            self.attrs[k] = self.attrs.get(k, 0) + v
+
+    def __enter__(self) -> "annotate":
+        stack = _open.stack
+        self.parent = stack[-1] if stack else -1
+        self.index = next(_next_index)
+        stack.append(self.index)
+        if not _profiling():
+            self.start_ns = time.time_ns()
+            return self
+        # kineto stamps its range as it opens and as it closes: the span's
+        # own stamps sit just inside it, the NVTX range inside those
+        self._range = _range_type(self.name)
+        self._range.__enter__()
+        self.start_ns = time.time_ns()
+        if _cuda():
+            torch.cuda.nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._range is None:
+            end = time.time_ns()
+        else:
+            if _cuda():
+                torch.cuda.nvtx.range_pop()
+            end = time.time_ns()
+            self._range.__exit__(None, None, None)
+            self._range = None
+        _open.stack.pop()
+        _ring[self.index % RING_SIZE] = (self.index, self.name, self.start_ns, end, self.parent,
+                                         self.attrs)
+        return False
+
+
+def spans(until_ns: Optional[int] = None) -> List[Span]:
+    """The closed spans the ring holds, in the order they opened; with
+    ``until_ns``, only those that ended by then."""
+    end = float("inf") if until_ns is None else until_ns
+    out = [e for e in list(_ring) if e is not None and e[3] <= end]
+    out.sort()  # by index: the ring is two sorted runs
+    return [Span._make(e) for e in out]
+
+
+def self_ms(recorded: Sequence[Span],
+            labels: Callable[[Span], Iterable[str]] = lambda s: (s.name,)) -> Dict[str, float]:
+    """The summed self time in ms (a span's duration less what its child
+    spans cover) under each of its ``labels``: by default its name."""
+    child = collections.Counter()
+    for s in recorded:
+        if s.parent >= 0:
+            child[s.parent] += s.end_ns - s.start_ns
+    out = collections.defaultdict(float)
+    for s in recorded:
+        for label in labels(s):
+            out[label] += (s.end_ns - s.start_ns - child[s.index]) / 1e6
+    return dict(out)
+
+
+def clear() -> None:
+    """Empty the ring and number spans from 0 again (with none open)."""
+    global _next_index
+    _ring[:] = [None] * RING_SIZE
+    _next_index = itertools.count()
+
+
+# ---------------------------------------------------------------------------
+# Memory
+# ---------------------------------------------------------------------------
 
 
 def device_memory_stats() -> dict:
     """Bytes the CUDA allocator holds for tensors on each card, now and at
     its peak: ``{"cuda:i": {"bytes_in_use", "peak_bytes_in_use"}}``; empty
     without a card."""
-    import torch
-
     if not _cuda():
         return {}
     out = {}
@@ -227,7 +333,6 @@ def device_window() -> Iterator[DeviceWindow]:
     a synchronize, WINDOW_PAD_S again. Yields a DeviceWindow, filled when
     the block ends with the launch calls made inside the range and their
     device events (the primers' left out). Raises without a CUDA device."""
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -270,25 +375,6 @@ def device_events(fn, names: Sequence[str] = (), reps: int = 25,
     return sum(e.duration_ns() for e in evts) / 1e3, len(evts)
 
 
-def trace_device_events(run_once, iters: int = 4) -> Dict[str, float]:
-    """Device time by kernel name (us, summed over ``iters`` calls of
-    ``run_once``): a Counter over every device kernel, memset and copy.
-    Raises without a CUDA device. Divide by ``iters`` for per-call."""
-    with device_window() as win:
-        for _ in range(iters):
-            run_once()
-    win.check()
-    dur = collections.Counter()
-    for evt in win.events:
-        dur[evt.name()] += evt.duration_ns() / 1e3
-    return dur
-
-
-def trace_device_us(run_once, iters: int = 4) -> float:
-    """Total device us per ``run_once`` call (see trace_device_events)."""
-    return sum(trace_device_events(run_once, iters).values()) / iters
-
-
 def device_ms(fn, names: Sequence[str] = (), per_call: Optional[int] = None,
               reps: int = 25, events: Optional[int] = None) -> Tuple[float, float]:
     """Device time of one call of ``fn`` in ms, from ``reps`` calls after
@@ -304,8 +390,6 @@ def device_ms(fn, names: Sequence[str] = (), per_call: Optional[int] = None,
     launch's device events, and exactly ``per_call * reps`` (or ``events *
     reps``) of the counted ones; a window that sees fewer raises
     ShortWindowError with both counts. Returns (ms, events per call)."""
-    import torch
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -319,8 +403,6 @@ def call_ms(fn, reps: int = 25) -> float:
     around one call on an idle card, median of ``reps`` after warm-up, in ms.
     It includes the call's host work (wrapper checks, allocation, ctypes),
     so it is not a kernel time."""
-    import torch
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()

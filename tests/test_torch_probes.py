@@ -419,22 +419,27 @@ def test_torch_probe_mma_wrapper_refuses_unbuilt_cases(taps):
 
 
 def test_torch_profiling_without_a_card(tmp_path):
-    """Without a card the hooks do nothing and the device timers raise;
-    trace_session still writes the host's Chrome trace."""
+    """Without a card spans still record into the ring, the memory figures
+    are empty and the device timers raise; under a CPU profiler a span
+    still shows in the host's Chrome trace."""
     assert not torch.cuda.is_available()
-    with profiling.annotate("span"), profiling.step_annotation("step", 3):
+    with profiling.annotate("span"), profiling.annotate("step", tick=3):
         x = torch.ones(4) * 2
     assert float(x.sum()) == 8.0
+    span, step = profiling.spans()[-2:]
+    assert (span.name, step.name, step.parent, step.attrs) == ("span", "step", span.index, {"tick": 3})
     hw = profiling.MemoryHighWater()
     assert hw.sample() == {} and hw.peak == {} and hw.samples == 1
     assert profiling.device_memory_stats() == {}
     with pytest.raises(RuntimeError):
-        profiling.trace_device_events(lambda: torch.ones(3), iters=1)
-    with profiling.trace_session(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
-    with profiling.trace_session(""):
-        pass
+        profiling.device_events(lambda: torch.ones(3), reps=1)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("traced_span"):
+            torch.ones(8).sum()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert '"traced_span"' in (tmp_path / "trace.json").read_text()
 
 
 def test_torch_profiling_kernel_names():
