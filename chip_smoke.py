@@ -196,7 +196,10 @@ Phases (any failure exits non-zero and prints no result line):
 Phases 10, 11 and 12 run after phase 6, then 7, 9 and 8.
 Each path phase (5-10, 5b, the chunks, each cli_vo run of 5c and of the
 checkpoints) sets the launch counts to 0 just before it and reads them just
-after. The line before the last is the per-kernel JSON record;
+after; each VO path (5, 5b, the chunks, 5c's cli_vo runs and checkpoints,
+9's two engines, 12's sharded fleets on each rank) must show window BA on
+its kernels in whole runs (``ba_runs``: ba_schur once an LM iteration,
+ba_update once more). The line before the last is the per-kernel JSON record;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -229,17 +232,24 @@ BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores (kernel M)
 
 CLI_FRAMES, CLI_HW, CLI_BATCH = 64, (512, 512), 16
 MAPS = ("edges", "lines_dark", "lines_bright")
+#: a VO frame's front-end (B′, C′, D′), and window BA's two kernels an LM
+#: iteration (ops.cuda_ba), which every VO path's keyframes run
+FRONTEND_KERNELS = ("pyr_down", "g2_features_full", "desc_sample")
+BA_KERNELS = ("ba_schur", "ba_update")
 PATH_KERNELS = {  # phase -> the kernels its path must launch
-    "vo": ("pyr_down", "g2_features_full", "desc_sample"),
-    "vo_device": ("pyr_down", "g2_features_full", "desc_sample"),
+    "vo": FRONTEND_KERNELS + BA_KERNELS,
+    "vo_device": FRONTEND_KERNELS + BA_KERNELS,
+    "chunk": FRONTEND_KERNELS + BA_KERNELS,
     "cli_g2": ("g2_maps",),
     "cli_g4": ("g4_maps",),
     "pyramid": ("filter_bank", "pyr_down", "filter_bank_adj"),
     "probes": ("probe_gather_rows", "probe_gather_patches", "probe_maps_stages",
                "probe_maps_variants", "probe_maps_mma"),
-    "loop": ("pyr_down", "g2_features_full", "desc_sample"),
-    "loop_host": ("pyr_down", "g2_features_full", "desc_sample"),
-    "serving": ("pyr_down", "g2_features_full", "desc_sample"),
+    "loop": FRONTEND_KERNELS + BA_KERNELS,
+    "loop_host": FRONTEND_KERNELS + BA_KERNELS,
+    "serving": FRONTEND_KERNELS + BA_KERNELS,
+    "checkpoint": FRONTEND_KERNELS + BA_KERNELS,
+    "fleet_mesh": FRONTEND_KERNELS + BA_KERNELS,
     "features_g4": ("filter_bank", "pyr_down", "desc_sample"),
     "features_g2_strength": ("filter_bank", "pyr_down", "desc_sample"),
     "vo_g4": ("filter_bank", "pyr_down", "desc_sample"),
@@ -251,9 +261,24 @@ LAUNCHES_FROM = {  # kernel -> the phase whose launch count the JSON line report
     "filter_bank": "pyramid", "pyr_down": "vo", "g2_features_full": "vo", "desc_sample": "vo",
     "g2_maps": "cli_g2", "g4_maps": "cli_g4", "filter_bank_adj": "pyramid",
     "g2_feature_maps": None,  # E′: no path in either package calls it
+    # the classic fleet's FP (cli_vo serving) and its host engines' keyframes
+    "ba_schur": "serving", "ba_update": "serving",
     **{k: "probes" for k in PATH_KERNELS["probes"]},
 }
 VO_PROFILE_WARM, VO_PROFILE_FRAMES = 10, 5
+
+
+def ba_runs(launches, iterations: int) -> int:
+    """Window BA runs (bundle_adjust calls, eager or captured into a graph)
+    in a phase's launch counts, or -1 where they are not whole runs: a run
+    of ``iterations`` LM iterations launches ba_schur once an iteration and
+    ba_update once more (its initial cost). Graph replays launch through no
+    wrapper, so an engine's P or FP counts once a capture and once an eager
+    warm-up."""
+    s, u = launches.get("ba_schur", 0), launches.get("ba_update", 0)
+    return u - s if s == iterations * (u - s) else -1
+
+VO_BA_ITERS = 12  # VOConfig's ba_iterations: LM iterations of a window BA run
 VO_TWIN_ATE = 0.01  # the device engine's ATE against the host engine's, m (tests/test_vo_device.py)
 # the two engines' trajectories (Sim(3)-aligned), m: they read 0.0144 apart on
 # an H100, the gap opening at the first window BA on the device (PERF.md §6)
@@ -720,6 +745,223 @@ def check_kernels(frame, frames512, fish):
     return records, ok
 
 
+#: window BA's kernels against float64 plain: of each piece's largest magnitude
+TOL_BA = 1e-4
+BA_HUBER = 0.01
+#: least flops of one observation in kernel ba_schur (projection, weights and
+#: J 70; H_ll terms 27; W 54; W H^-1 90; H_cc, -J_c^T r, W H^-1 b_l 138) and
+#: ba_update (J at the old state 70, J_c dx and J_l^T of it 33, the new
+#: point's cost 37), and of one column beside them (H_ll's camera sums and
+#: inverse 74 + 9 (C - 1); the back-substitution 33 + 3 (C - 1))
+BA_OBS_FLOPS = {"ba_schur": 379, "ba_update": 140}
+
+
+def ba_work(name, B, C, L):
+    """(bytes, least flops) of one call of window BA kernel ``name`` on B
+    problems of C cameras by L columns, counted from the shapes: inputs read
+    once, outputs written once. ba_schur: the Schur product's upper triangle
+    (S is symmetric), 6C (6C + 1) / 2 entries of 3 multiply-adds a column;
+    ba_update: no product."""
+    per_col = C * BA_OBS_FLOPS[name]
+    if name == "ba_schur":
+        flops = B * L * (per_col + 3 * 6 * C * (6 * C + 1) + 74 + 9 * (C - 1))
+        floats = B * L * (3 + 3 * C + 12) + B * C * (12 + 36 * C + 36 + 12) + B
+    else:
+        flops = B * L * (per_col + 33 + 3 * (C - 1))
+        floats = B * L * (3 + 3 * C + 12 + 3) + B * C * (12 + 6 + 1 + 12) + B
+    return 4 * floats, flops
+
+
+def ba_batch(B, C, L, seed=0):
+    """B seeded problems of ba_world stacked on the card, float64: noisy
+    observations (1e-3), per problem its own fixed cameras (the first two or
+    three: the scale pinned), two columns masked whole, one dead (X = 0,
+    unobserved), and its own lambda. -> dict of R, t, X, uv, mask, fixed, lam."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {k: [] for k in ("R", "t", "X", "uv", "mask", "fixed", "lam")}
+    for b in range(B):
+        w = ba_world(C, L, seed * 1000 + b)
+        mask, X = w["mask"].copy(), w["X0"].astype(np.float64)
+        dead = rng.choice(L, size=min(L, 3), replace=False)
+        mask[:, dead] = False
+        X[dead[2:]] = 0.0
+        uv = w["uv"] + rng.normal(0, 1e-3, w["uv"].shape)
+        for k, v in (("R", w["R0"]), ("t", w["t0"]), ("X", X), ("uv", uv), ("mask", mask),
+                     ("fixed", np.arange(C) < 2 + b % 2), ("lam", 10.0 ** rng.uniform(-4, 1))):
+            out[k].append(np.asarray(v))
+    T = {k: torch.as_tensor(np.stack(v)).cuda() for k, v in out.items()}
+    for k in ("R", "t", "X", "uv", "lam"):
+        T[k] = T[k].double()
+    return T
+
+
+def ba_f32(T):
+    """ba_batch's tensors as the kernels take them: float32, the mask too."""
+    return {k: (v if k == "fixed" else v.float()) for k, v in T.items()}
+
+
+def ba_plain_schur(R, t, X, uv, mask, lam, huber=BA_HUBER):
+    """slam.ba's plain pieces over a batch (vmapped): undamped (S, bs_lm),
+    H_cc, b_c, H_ll^-1, b_l, and W (for the back-substitution)."""
+    import torch
+
+    from cvsteer_tpu_torch.slam import ba
+
+    def one(R, t, X, uv, mask, lam):
+        H_cc, H_ll, W, b_c, b_l = ba._normal_equations(
+            ba.BAState(R, t, X), ba.BAProblem(uv, mask, None, huber))
+        S, bs_lm, Hinv = ba._schur_terms(H_ll, W, b_l, lam)
+        return S, bs_lm, H_cc, b_c, Hinv, b_l, W
+
+    return torch.func.vmap(one)(R, t, X, uv, mask, lam)
+
+
+def ba_plain_update(R, t, X, uv, mask, fixed, W, Hinv, b_l, dx, huber=BA_HUBER):
+    """slam.ba's plain back_substitute, apply_updates and cost (vmapped):
+    (R, t, X, cost) of the step dx."""
+    import torch
+
+    from cvsteer_tpu_torch.slam import ba
+
+    def one(R, t, X, uv, mask, fixed, W, Hinv, b_l, dx):
+        dX = ba.back_substitute(W, Hinv, b_l, dx)
+        cand = ba.apply_updates(ba.BAState(R, t, X), dx, dX, fixed)
+        return (*cand, ba.cost(cand, ba.BAProblem(uv, mask, fixed, huber)))
+
+    return torch.func.vmap(one)(R, t, X, uv, mask, fixed, W, Hinv, b_l, dx)
+
+
+def _ba_rel(got, want, live=None) -> float:
+    """Largest |got - want| over want's largest magnitude (over ``live``
+    columns of an [B, L, ...] piece where given)."""
+    if live is not None:
+        got, want = got[live], want[live]
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def ba_replay_ms(T, iterations=12, fused=True, reps=20) -> float:
+    """CUDA events over ``reps`` replays of a graph of bundle_adjust
+    (vmapped over the batch, captured as the engines capture), in ms a
+    replay; ``fused`` False runs the plain path."""
+    import torch
+
+    from cvsteer_tpu_torch.slam import ba
+    from cvsteer_tpu_torch.slam.vo_device import _capture_math
+
+    args = [T[k] for k in ("R", "t", "X", "uv", "mask", "fixed")]
+
+    def solve(R, t, X, uv, mask, fixed):
+        out, st = ba.bundle_adjust(ba.BAState(R, t, X), ba.BAProblem(uv, mask, fixed, BA_HUBER),
+                                   iterations=iterations)
+        return (*out, st.cost)
+
+    def run():
+        with _capture_math():
+            return torch.func.vmap(solve)(*args)
+
+    orig = ba._fused
+    if not fused:
+        ba._fused = lambda state, problem: False
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+    finally:
+        ba._fused = orig
+    for _ in range(3):
+        g.replay()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def check_ba_kernels(shapes=((16, 8, 4096), (1, 8, 4096))):
+    """Phase 4, window BA: kernels ba_schur and ba_update (ops/cuda_ba.py)
+    against slam.ba's plain pieces in float64 (TOL_BA of each piece's largest
+    magnitude) at the fleet's shape (B 16 problems, C 8, L 4096) and at B = 1,
+    timed beside the plain path at both (the first shape's times are the
+    record's, the others under ``at``); and a 12-iteration bundle_adjust
+    graph replay at each shape, kernels against plain. Returns (records, ok)."""
+    import torch
+
+    from cvsteer_tpu_torch.ops import cuda_ba  # noqa: F401 (defines torch.ops.cvsteer)
+    from cvsteer_tpu_torch.slam import ba
+
+    src = "cvsteer_tpu_torch/kernels/csrc/ba_schur.cu"
+    names = {"ba_schur": "ba_schur_kernel", "ba_update": "ba_update_kernel"}
+    res = {k: dict(err=0.0, at={}) for k in names}
+    replay = {}
+    for B, C, L in shapes:
+        at = f"B{B}_C{C}_L{L}"
+        T = ba_batch(B, C, L, seed=B)
+        F = ba_f32(T)
+        args = [F[k] for k in ("R", "t", "X", "uv", "mask")]
+        want = ba_plain_schur(*(T[k] for k in ("R", "t", "X", "uv", "mask", "lam")))
+        got = torch.ops.cvsteer.ba_schur(*args, F["lam"], BA_HUBER)
+        live = T["mask"].any(1)
+        S, bs, Hcc, bc, lm = got
+        pieces = [(S, want[0], None), (bs, want[1], None), (Hcc, want[2], None),
+                  (bc, want[3], None), (lm[..., :9].view(B, L, 3, 3), want[4], live),
+                  (lm[..., 9:], want[5], live)]
+        res["ba_schur"]["err"] = max(res["ba_schur"]["err"], *(_ba_rel(*p) for p in pieces))
+        # the update at a float64 Cholesky step of the damped system
+        Sd, bsd = torch.func.vmap(ba._camera_system, in_dims=(0, 0, 0, 0, 0, 0, None))(
+            want[0], want[1], want[2], want[3], T["lam"], T["fixed"], None)
+        dx = torch.func.vmap(ba.solve_reduced_dense)(Sd, bsd)
+        pw = ba_plain_update(*(T[k] for k in ("R", "t", "X", "uv", "mask", "fixed")), want[6],
+                             want[4], want[5], dx)
+        kw = torch.ops.cvsteer.ba_update(*args, dx.float(), F["fixed"], lm, BA_HUBER)
+        c0 = torch.ops.cvsteer.ba_update(*args, None, None, None, BA_HUBER)[3]
+        c0w = torch.func.vmap(lambda R, t, X, uv, m: ba.cost(
+            ba.BAState(R, t, X), ba.BAProblem(uv, m, None, BA_HUBER)))(
+                *(T[k] for k in ("R", "t", "X", "uv", "mask")))
+        res["ba_update"]["err"] = max(res["ba_update"]["err"], _ba_rel(c0, c0w),
+                                      *(_ba_rel(k, w) for k, w in zip(kw, pw)))
+        # times: the kernel against its plain pieces at this shape
+        Fw = [a.float() for a in (want[6], want[4], want[5])]  # W, H_ll^-1, b_l
+        dxf = dx.float()
+        calls = {
+            "ba_schur": ([lambda: torch.ops.cvsteer.ba_schur(*args, F["lam"], BA_HUBER)],
+                         [lambda: ba_plain_schur(*args, F["lam"])]),
+            "ba_update": ([lambda: torch.ops.cvsteer.ba_update(*args, dxf, F["fixed"], lm,
+                                                               BA_HUBER)],
+                          [lambda: ba_plain_update(*args, F["fixed"], *Fw, dxf)]),
+        }
+        for name, (kern, plain) in calls.items():
+            t = timings(kern, (names[name],), 1, plain)
+            bound = Bound()
+            bound.add(*ba_work(name, B, C, L))
+            res[name]["at"][at] = dict(**t, **bound.fields())
+        replay[at] = dict(kernels_ms=ba_replay_ms(F), plain_ms=ba_replay_ms(F, fused=False))
+        print(f"window BA {B}x{C}x{L}: 12-iteration graph replay ms {replay[at]}")
+
+    records, ok = [], True
+    first = "B{}_C{}_L{}".format(*shapes[0])
+    for name, r in res.items():
+        t = dict(r["at"][first])
+        bound = Bound()
+        bound.add(t.pop("bound_bytes"), t.pop("bound_flops"))
+        for k in ("bound_ms", "bound_by"):
+            t.pop(k)
+        ok &= add_record(
+            records, name, src, "none: the reference left window BA to XLA (slam/ba.py)",
+            r["err"], r["err"] <= TOL_BA, t, bound, tolerance=TOL_BA, timed_shape=list(shapes[0]),
+            at=r["at"], **({"bundle_adjust_replay": replay} if name == "ba_schur" else {}))
+    return records, ok
+
+
 def ate_bound(seq, state, cfg) -> dict:
     """The ATE gate, derived as in tests/test_cli_vo.py (not a reported
     number): per keyframe hop the monocular depth-direction error is
@@ -1136,7 +1378,7 @@ def run_serving(workdir: str) -> dict:
 
     # (a) B, C, D on the fleet's batch
     fe = frontend_agreement(torch.from_numpy(stacks[0]).cuda(), cfg.frontend, g2_bank())
-    agree = {k: fe[k] for k in PATH_KERNELS["serving"]}
+    agree = {k: fe[k] for k in FRONTEND_KERNELS}
     agree["p3_keep_agreement"] = fe["p3_keep_agreement"]
 
     # (c) the library runs; DeviceVOServer's engines are the single-stream
@@ -1641,10 +1883,10 @@ def run_loop_city() -> dict:
     # 240x320 frame down to 15x20) and with its upright descriptors
     img0 = torch.from_numpy(images[0]).cuda().to(torch.float32)[None].contiguous()
     fe = frontend_agreement(img0, cfg.frontend, g2_bank())
-    agree = {k: fe[k] for k in PATH_KERNELS["loop"]}
+    agree = {k: fe[k] for k in FRONTEND_KERNELS}
     agree["p3_keep_agreement"] = fe["p3_keep_agreement"]
     agree["shapes"] = [tuple(lv.shape[-2:]) for lv in fe["levels"]]
-    return dict(device=dev, host=host, kernels=agree)
+    return dict(device=dev, host=host, kernels=agree, ba_iterations=cfg.ba_iterations)
 
 
 def run_cli(frames512, paths, workdir: str):
@@ -2901,7 +3143,7 @@ def _mesh_fleet(world: int, stacks_path: str) -> dict:
     lo = rank * m
     fe = frontend_agreement(torch.from_numpy(np.asarray(stacks[0, lo: lo + m], np.float32)).cuda(),
                             cfg.frontend, g2_bank())
-    out = dict(agree={k: fe[k] for k in PATH_KERNELS["serving"]}, batch=m,
+    out = dict(agree={k: fe[k] for k in FRONTEND_KERNELS}, batch=m,
                p3_keep_agreement=fe["p3_keep_agreement"])
     del fe
     for name, kw in MESH_FLEET_RUNS.items():
@@ -3036,7 +3278,7 @@ def check_phase12(p12: dict, ref: dict, card: str):
                  + 1e-10 and g["rot"] < MESH_PGO_TOL["rot"]))
         # (c) the fleet
         f0 = r0["fleet"]
-        agree = [{k: r["fleet"]["agree"][k] for k in PATH_KERNELS["serving"]} for r in ranks]
+        agree = [{k: r["fleet"]["agree"][k] for k in FRONTEND_KERNELS} for r in ranks]
         print(f"{tag} | B′, C′, D′ against their plain versions on each rank's "
               f"[{f0['batch']}, 480, 640] sub-fleet batch: " + json.dumps(
                   [{k: {"max_abs_err": a[k][0], "bit_equal": a[k][1]} for k in a} for a in agree])
@@ -3048,7 +3290,8 @@ def check_phase12(p12: dict, ref: dict, card: str):
             sh, un = f0[mode], f0[f"{mode} unsharded"]
             timed = SERVE_FRAMES - SERVE_PROFILE_FROM
             fps = S * timed / max(r["fleet"][mode]["s"] for r in ranks)
-            lc = [{k: r["fleet"][mode]["launches"][k] for k in VO_LAUNCHES_PER_FRAME} for r in ranks]
+            lc = [{k: r["fleet"][mode]["launches"][k] for k in (*VO_LAUNCHES_PER_FRAME, *BA_KERNELS)}
+                  for r in ranks]
             launches[f"{wname}_{mode}"] = lc
             ate = [ate_rmse(*p, *g_) for p, g_ in zip(sh["poses"], gts)]
             ate_un = [ate_rmse(*p, *g_) for p, g_ in zip(un["poses"], gts)]
@@ -3075,6 +3318,8 @@ def check_phase12(p12: dict, ref: dict, card: str):
                 r["fleet"][mode]["captures"] == 2 and r["fleet"][mode]["engine_captures"] == 0
                 and r["fleet"][mode]["engines"] == S // n for r in ranks) and all(
                 l_[k] == v * SERVE_FRAMES for l_ in lc for k, v in VO_LAUNCHES_PER_FRAME.items())
+            checks[f"phase 12 {wname} fleet {mode}: window BA on its kernels, whole runs, each "
+                   f"rank"] = all(ba_runs(l_, VO_BA_ITERS) >= 1 for l_ in lc)
             if one:
                 checks[f"phase 12 {wname} fleet {mode}: bit-equal to the unsharded fleet"] = same
             else:
@@ -3140,6 +3385,8 @@ def main(argv=None) -> int:
 
         # 4. kernel checks (their launches are not the paths')
         records, ok = check_kernels(frame, frames512, fish)
+        ba_records, ba_ok = check_ba_kernels()
+        records, ok = records + ba_records, ok and ba_ok
         if not ok:
             return _fail("a kernel disagrees with its plain version")
 
@@ -3164,7 +3411,8 @@ def main(argv=None) -> int:
             "VO: one pose per frame": res["frames"] == list(range(n)),
             "VO: finite poses": res["finite"],
             "VO: ATE within bound": res["ate"] < gate["bound"],
-            "VO: kernels B-D launched": all(res["launches"][k] > 0 for k in PATH_KERNELS["vo"]),
+            "VO: kernels B-D launched": all(res["launches"][k] > 0 for k in FRONTEND_KERNELS),
+            "VO: window BA on its kernels, whole runs": ba_runs(res["launches"], VO_BA_ITERS) >= 1,
             "VO: launches per frame": all(res["launches"][k] == v * n
                                           for k, v in VO_LAUNCHES_PER_FRAME.items()),
         }
@@ -3212,7 +3460,9 @@ def main(argv=None) -> int:
             "VO device: the host engine's poses until its first promotion": (
                 dres["first_promotion"] is not None and dres["max_pose_diff_before"] < VO_SAME_POSE),
             "VO device: kernels B-D launched": all(dres["launches"][k] > 0
-                                                   for k in PATH_KERNELS["vo_device"]),
+                                                   for k in FRONTEND_KERNELS),
+            "VO device: window BA on its kernels, whole runs": ba_runs(
+                dres["launches"], VO_BA_ITERS) >= 1,
             "VO device: launches per frame": all(dres["launches"][k] == v * n
                                                  for k, v in VO_LAUNCHES_PER_FRAME.items()),
             "VO device: 2 graphs, none after the first upload": (
@@ -3257,6 +3507,8 @@ def main(argv=None) -> int:
             "VO chunks: one fetch per chunk": cres["waits_per_chunk"] == 1.0,
             "VO chunks: B, C, D once per batched front-end call (one a chunk), A none": all(
                 cres["launches"][k] == v * cres["calls"] for k, v in VO_LAUNCHES_PER_FRAME.items()),
+            "VO chunks: window BA on its kernels, whole runs": ba_runs(
+                cres["launches"], VO_BA_ITERS) >= 1,
         })
         print(f"{card} | VO device chunks: launches {cres['launches']} over {cres['calls']} "
               f"batched front-end calls of {CHUNK} frames")
@@ -3274,10 +3526,10 @@ def main(argv=None) -> int:
         ag = srv["agree"]
         print(f"{card} | serving: B, C, D against their plain versions on the [8, 480, 640] stack: "
               + json.dumps({k: {"max_abs_err": ag[k][0], "bit_equal": ag[k][1]}
-                            for k in PATH_KERNELS["serving"]})
+                            for k in FRONTEND_KERNELS})
               + f"; p3 keep agreement {ag['p3_keep_agreement']}")
         checks["serving: B, C, D bit-equal to plain at [8, 480, 640]"] = (
-            all(ag[k][1] for k in PATH_KERNELS["serving"]) and ag["p3_keep_agreement"] == 1.0)
+            all(ag[k][1] for k in FRONTEND_KERNELS) and ag["p3_keep_agreement"] == 1.0)
         window = f"{SERVE_PROFILE_FROM}-{SERVE_PROFILE_FROM + SERVE_PROFILE_TICKS - 1}"
         for path, r in srv["lib"].items():
             n = len(r["states"][0].trajectory)
@@ -3331,7 +3583,9 @@ def main(argv=None) -> int:
                 x["ate"] < g["bound"] for x, g, a in zip(st, srv["gates"], single_ate)
                 if a < g["bound"])
             checks[f"serving cli {path}: B-D once per tick"] = all(
-                r["launches"][k] == SERVE_FRAMES for k in PATH_KERNELS["serving"])
+                r["launches"][k] == SERVE_FRAMES for k in FRONTEND_KERNELS)
+            checks[f"serving cli {path}: window BA on its kernels, whole runs"] = ba_runs(
+                r["launches"], VO_BA_ITERS) >= 1
         bt = srv["batching"]
         print(f"{card} | serving: seed 0's stream through a 1-stream fleet equals a DeviceVO's "
               f"bit for bit: {bt['one_equal']}; eight copies of it through an 8-stream fleet: "
@@ -3361,8 +3615,11 @@ def main(argv=None) -> int:
                 r["stepped"][0] == SERVE_FRAMES and all(
                     la[k] == v * st for la, st in zip(r["launches"], r["stepped"])
                     for k, v in VO_LAUNCHES_PER_FRAME.items()))
+            checks[f"checkpoints {name}: window BA on its kernels, whole runs"] = (
+                ba_runs(r["launches"][0], VO_BA_ITERS) >= 1
+                and all(ba_runs(la, VO_BA_ITERS) >= 0 for la in r["launches"]))
         launches["checkpoint"] = {k: sum(la[k] for r in ckr.values() for la in r["launches"])
-                                  for k in VO_LAUNCHES_PER_FRAME}
+                                  for k in (*VO_LAUNCHES_PER_FRAME, *BA_KERNELS)}
         print(f"{card} | checkpoints: {time.perf_counter() - t1:.1f} s")
         print(f"{card} | phase 5c (serving) {time.perf_counter() - t0:.1f} s (frames rendered "
               f"and written in {srv['render_s']:.1f} s, {SERVE_RENDER_WORKERS} processes)")
@@ -3607,7 +3864,9 @@ def main(argv=None) -> int:
             f"loop (b) {eng}: one finite pose per frame": r["whole"] and r["finite"],
             f"loop (b) {eng}: ATE within bound": r["ate"] < r["gate"]["bound"],
             f"loop (b) {eng}: kernels B-D launched": all(r["launches"][k] > 0
-                                                         for k in PATH_KERNELS[key]),
+                                                         for k in FRONTEND_KERNELS),
+            f"loop (b) {eng}: window BA on its kernels, whole runs": ba_runs(
+                r["launches"], city["ba_iterations"]) >= 1,
             f"loop (b) {eng}: ground corrections": r["ground"] >= 1,
         })
     pgo = time_pgo()
@@ -3623,10 +3882,10 @@ def main(argv=None) -> int:
     kc = city["kernels"]
     print(f"{card} | loop (b) kernels against their plain versions on CityLoop frame 0 (levels "
           f"{kc['shapes']}, upright descriptors): " + json.dumps(
-              {k: {"max_abs_err": kc[k][0], "bit_equal": kc[k][1]} for k in PATH_KERNELS["loop"]})
+              {k: {"max_abs_err": kc[k][0], "bit_equal": kc[k][1]} for k in FRONTEND_KERNELS})
           + f"; p3 keep agreement {kc['p3_keep_agreement']}")
     checks["loop (b): B, C, D bit-equal to plain at the path's shapes"] = (
-        all(kc[k][1] for k in PATH_KERNELS["loop"]) and kc["p3_keep_agreement"] == 1.0)
+        all(kc[k][1] for k in FRONTEND_KERNELS) and kc["p3_keep_agreement"] == 1.0)
 
     # 8. probes: their paths, then their kernels against the plain versions
     t0 = time.perf_counter()

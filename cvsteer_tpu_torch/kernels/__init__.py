@@ -8,10 +8,10 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 loads the cached library. Nothing here runs at import time: the CPU-only
 test suite imports every module of the package.
 
-Every kernel wrapper (ops.cuda_frontend, ops.cuda_desc, ops.cuda_probes)
-adds one to its launch count right where it launches its kernel;
-:func:`launch_counts` and :func:`reset_launch_counts` let a run show which
-kernels its main path went through.
+Every kernel wrapper (ops.cuda_frontend, ops.cuda_desc, ops.cuda_ba,
+ops.cuda_probes) adds one to its launch count right where it launches its
+kernel; :func:`launch_counts` and :func:`reset_launch_counts` let a run show
+which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 KERNELS = (
     "filter_bank", "pyr_down", "g2_features_full", "desc_sample",
     "g2_maps", "g4_maps", "filter_bank_adj", "g2_feature_maps",
+    # window BA's two kernels an LM iteration (ops.cuda_ba)
+    "ba_schur", "ba_update",
     # the measurement probes' kernels (ops.cuda_probes)
     "probe_gather_rows", "probe_gather_patches", "probe_maps_stages",
     "probe_maps_variants", "probe_maps_mma",
@@ -152,6 +154,14 @@ _SIGNATURES = {
     "cvs_maps_g4": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P),
     # in, score, ct, st, n, h, w, t, xtaps(host), ytaps(host), stream
     "cvs_features_g2": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # R, t, X, uv, mask, lam, huber, S, bs, Hcc, bc, lm, part, tickets, B, C, L, lb,
+    # sub, nchunk, stream
+    "cvs_ba_schur": (_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _P),
+    # R, t, X, uv, mask, huber, dx, fixed, lm, Rn, Tn, Xn, cost, part, tickets, B, C, L,
+    # lb, sub, nchunk, stream
+    "cvs_ba_update": (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _P),
     # grad, out, n, h, w, k, t, xtaps(host), ytaps(host), stream
     "cvs_filter_bank_adj": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # tbl, idx, out, n_tbl, m, row_bytes, stream

@@ -23,6 +23,13 @@ H_cc and b_c) over the ranks in one packed all-reduce, and each cost in one
 scalar all-reduce; every rank solves the same summed camera system, and
 the back-substitution stays local. ``group`` None is the single device.
 
+On the card, float32 problems take two hand-written kernels an iteration
+(ops.cuda_ba: the linearization and the camera side of the Schur
+complement in one, the updates and the candidate's cost in the other),
+each launched once for every problem of a vmapped batch; the dense
+Cholesky solve between them stays here. The CPU and float64 run the plain
+code below, which the kernels' decomposition and its tests follow.
+
 Both solvers run inside the device engine's captured CUDA graphs
 (slam.vo_device): every tensor they make is made on the device (no copy
 from host memory), and the ``*_ex`` factorizations leave their status on
@@ -36,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from cvsteer_tpu_torch.ops import cuda_ba
 from cvsteer_tpu_torch.slam import se3
 from cvsteer_tpu_torch.utils.precision import precise
 
@@ -191,6 +199,14 @@ def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed,
     With ``group`` (landmark shards) the camera-side pieces are summed over
     the ranks, in one all-reduce of C^2 36 + C 36 + 2 C 6 floats, before
     the damping and the gauge."""
+    S, bs_lm, Hinv = _schur_terms(H_ll, W, b_l, lam)
+    return (*_camera_system(S, bs_lm, H_cc, b_c, lam, fixed, group), Hinv)
+
+
+def _schur_terms(H_ll, W, b_l, lam):
+    """The landmark side of :func:`reduced_system`, undamped on the cameras:
+    (S = -W H_ll^-1 W^T [C, 6, C, 6], bs_lm = W H_ll^-1 b_l [C, 6], H_ll^-1
+    [L, 3, 3]) with H_ll damped by ``lam``."""
     C, L = W.shape[:2]
     Hinv = _inv3(H_ll, lam)
     WHinv = torch.einsum("clik,lkm->clim", W, Hinv)
@@ -198,6 +214,12 @@ def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed,
     B2 = W.permute(0, 2, 1, 3).reshape(C * 6, L * 3)
     S = -(A2 @ B2.T).reshape(C, 6, C, 6)
     bs_lm = (A2 @ b_l.reshape(L * 3)).reshape(C, 6)
+    return S, bs_lm, Hinv
+
+
+def _camera_system(S, bs_lm, H_cc, b_c, lam, fixed, group):
+    """(S, b_s) of :func:`reduced_system` from its undamped camera-side
+    pieces: summed over the landmark shards, damped, gauged."""
     if group is not None:
         parts = (S, bs_lm, H_cc, b_c)
         summed = _all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]), group)
@@ -210,7 +232,7 @@ def reduced_system(H_cc, H_ll, W, b_c, b_l, lam, fixed,
     free = (~fixed).to(S.dtype)
     S = S * free[:, None, None, None] * free[None, None, :, None]
     S = _block_diag_add(S, eye6 * (1.0 - free)[:, None, None])
-    return S, b_s * free[:, None], Hinv
+    return S, b_s * free[:, None]
 
 
 def solve_reduced_dense(S: torch.Tensor, b_s: torch.Tensor) -> torch.Tensor:
@@ -237,11 +259,23 @@ def apply_updates(state: BAState, dx_c, dX, fixed) -> BAState:
     return BAState(R=R_new, t=state.t + dx_c[:, 3:] * free, X=state.X + dX)
 
 
+def _fused(state: BAState, problem: BAProblem) -> bool:
+    """float32 on the card takes ops.cuda_ba's kernels."""
+    return cuda_ba.takes(state.R, state.t, state.X, problem.uv)
+
+
 def ba_step(state: BAState, problem: BAProblem, lam,
             group: Optional[dist.ProcessGroup] = None) -> Tuple[BAState, torch.Tensor]:
     """One damped Gauss-Newton step: (candidate state, its cost). ``group``:
     the landmark shards' process group (the camera system is summed over it
     and solved on every rank; the landmark update stays local)."""
+    if _fused(state, problem):
+        uv, mask, huber = problem.uv, problem.mask.to(torch.float32), problem.huber_delta
+        S, bs_lm, H_cc, b_c, lm = cuda_ba.schur(*state, uv, mask, lam, huber)
+        S, b_s = _camera_system(S, bs_lm, H_cc, b_c, lam, problem.fixed_cameras, group)
+        dx_c = solve_reduced_dense(S, b_s)
+        *cand, c = cuda_ba.update(*state, uv, mask, dx_c, problem.fixed_cameras, lm, huber)
+        return BAState(*cand), (c if group is None else _all_reduce_sum(c, group))
     H_cc, H_ll, W, b_c, b_l = _normal_equations(state, problem)
     S, b_s, Hinv = reduced_system(H_cc, H_ll, W, b_c, b_l, lam, problem.fixed_cameras, group)
     dx_c = solve_reduced_dense(S, b_s)
@@ -312,7 +346,12 @@ def bundle_adjust(
     x(1/3). ``group``: the process group of the mesh axis the landmarks
     are sharded over (parallel.ba_sharded); every rank then takes the same
     decisions on the summed costs."""
-    c0 = cost(state, problem, group)
+    if _fused(state, problem):  # the mask as the kernels read it, once
+        problem = problem._replace(mask=problem.mask.to(torch.float32))
+        c0 = cuda_ba.cost(*state, problem.uv, problem.mask, problem.huber_delta)
+        c0 = c0 if group is None else _all_reduce_sum(c0, group)
+    else:
+        c0 = cost(state, problem, group)
     cur = c0
     lam = torch.full((), lam0, dtype=state.X.dtype, device=state.X.device)
     for _ in range(iterations):

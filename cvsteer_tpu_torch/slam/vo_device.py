@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import time
 import warnings
 from typing import NamedTuple, Optional, Tuple
@@ -682,10 +683,25 @@ def _capture_graphs(device, warm, halves) -> tuple:
     graphs = []
     for half in halves:
         g = torch.cuda.CUDAGraph()
-        with _capture_math(), torch.cuda.graph(g):
+        with _capture_math(), _gc_paused(), torch.cuda.graph(g):
             half()
         graphs.append(g)
     return tuple(graphs)
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's cyclic collector paused: a dead cycle that holds another
+    graph or a pinned buffer, freed mid-capture, invalidates the capture
+    (torch.cuda.graph no longer collects before it begins), and the
+    capture runs Python (window BA's vmap rule) that can trigger a pass."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _step_math(device):

@@ -416,6 +416,20 @@ def test_torch_cuda_vo_graphs_equal_eager_and_replay(device_vo, half):
     _run_from(vo, snap, half, eager=False)
 
 
+def test_torch_cuda_vo_p_launches_ba_kernels_once_an_iteration(device_vo):
+    """P's window BA (B = 1) launches ba_schur once an LM iteration and
+    ba_update once more (the initial cost)."""
+    vo = device_vo
+    snap = _run_from(vo, _engine_state(vo), 0, eager=False)
+    n = vo.state.config.ba_iterations
+    before = kernels.launch_counts()
+    _run_from(vo, snap, 1, eager=True)
+    after = kernels.launch_counts()
+    assert (after["ba_schur"] - before["ba_schur"], after["ba_update"] - before["ba_update"]) == (
+        n, n + 1)
+    _run_from(vo, snap, 1, eager=False)
+
+
 def test_torch_cuda_vo_captures_twice_and_never_again():
     """Two graphs after the first upload, none after 20 frames, and none
     after a blackout forces the host path and a re-upload."""
@@ -1019,6 +1033,20 @@ def test_torch_cuda_fleet_graphs_equal_eager_and_replay(fleet, half):
     _fleet_run_from(fleet, snap, half, eager=False)
 
 
+def test_torch_cuda_fleet_fp_launches_ba_kernels_once_an_iteration(fleet):
+    """FP's window BA over every stream (or the capped sub-batch) launches
+    ba_schur once an LM iteration and ba_update once more (the initial
+    cost), whatever S is."""
+    snap = _fleet_run_from(fleet, _fleet_state(fleet), 0, eager=False)
+    n = fleet.config.ba_iterations
+    before = kernels.launch_counts()
+    _fleet_run_from(fleet, snap, 1, eager=True)
+    after = kernels.launch_counts()
+    assert (after["ba_schur"] - before["ba_schur"], after["ba_update"] - before["ba_update"]) == (
+        n, n + 1)
+    _fleet_run_from(fleet, snap, 1, eager=False)
+
+
 def test_torch_cuda_fleet_frontend_batch_bit_equal(serve_frames):
     """B, C and D at the fleet's batch, [8, 480, 640], bit for bit against
     their plain versions (chip_smoke.frontend_agreement)."""
@@ -1131,10 +1159,10 @@ def test_torch_cuda_fleet_ring_hands_back_each_tick(serve_frames, depth):
             launch(*a)
             sent.append(flt._io.pipe_out.clone())
 
-        def spy_process(pending):
+        def spy_process(pending, *rest):
             pending[4].synchronize()  # the tick's fetch has landed
             seen.append(flt._ring[pending[2]].clone())
-            process(pending)
+            process(pending, *rest)
 
         flt._launch, flt._process = spy_launch, spy_process
         for k in range(serve_frames.shape[0]):
